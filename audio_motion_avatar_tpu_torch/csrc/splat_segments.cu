@@ -6,18 +6,10 @@
 // (tile, depth) into one (9, NP) array; tile t owns the contiguous segment
 // [starts[t], starts[t] + counts[t]) with counts already clamped to K.
 //
-// Design: one block per 16x16 tile, one thread per pixel. The block stages
-// its segment through shared memory 128 gaussians (9 floats each) at a time;
-// every thread then blends the chunk front to back in sequence, carrying its
-// log-transmittance. The blend rule is K3's exactly:
-//   alpha = min(op * exp(min(power, 0)), 0.99), zeroed where power > 0 or
-//   alpha < 1/255; a weight is dropped where T_after < 1e-4, but log(1-alpha)
-//   keeps accumulating (no 3DGS early exit) and T_final multiplies the white
-//   background; the output is clamped to [0, 1].
-// The TPU kernel forms the transmittance with a triangular-matmul prefix sum;
-// the sequential sum here differs from it only in rounding. The source is
-// built with --fmad=false so that it rounds exactly as the plain PyTorch
-// version (composite_segments_plain) does, operation for operation.
+// Design: the shared blend of splat_blend.cuh (one block per 16x16 tile, one
+// thread per pixel, the segment staged through shared memory 128 gaussians
+// at a time), loading tile t's gaussians from its segment. Built with
+// --fmad=false (see the header).
 //
 // Bound on the H100: the work is ~27 fp32 operations per (pixel, gaussian)
 // pair of the segments (data dependent) against 9 floats read per gaussian,
@@ -27,63 +19,20 @@
 // would keep several chunks in flight (cp.async double buffering) and retire
 // whole warps once all their pixels fall under T_EPS.
 
-#include <cuda_runtime.h>
+#include "splat_blend.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;   // pixels per tile = threads per block
-constexpr int CH = 128;          // gaussians staged per chunk
-constexpr int NPARAM = 9;        // mx, my, cxx, cxy, cyy, opacity, r, g, b
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
-
-__global__ void __launch_bounds__(P) seg_composite_kernel(
+__global__ void __launch_bounds__(splat::P) seg_composite_kernel(
     const float* __restrict__ params, long long np_stride,
     const int* __restrict__ starts, const int* __restrict__ counts,
     int tx, int tiles_per_frame, float* __restrict__ out) {
-  __shared__ float sp[NPARAM][CH];
   const int t = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int tid = t % tiles_per_frame;
-  const float px = (float)(pix % TILE) + (float)((tid % tx) * TILE);
-  const float py = (float)(pix / TILE) + (float)((tid / tx) * TILE);
   const long long start = starts[t];
-  const int count = counts[t];
-
-  float logT = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  for (int base = 0; base < count; base += CH) {
-    const int n = min(CH, count - base);
-    for (int i = threadIdx.x; i < NPARAM * CH; i += P) {
-      const int row = i / CH, col = i % CH;
-      sp[row][col] = col < n ? params[row * np_stride + start + base + col] : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float dx = px - sp[0][j];
-      const float dy = py - sp[1][j];
-      const float power = -0.5f * (sp[2][j] * dx * dx + sp[4][j] * dy * dy)
-                          - sp[3][j] * dx * dy;
-      float alpha = fminf(sp[5][j] * expf(fminf(power, 0.f)), ALPHA_MAX);
-      if (power > 0.f || alpha < ALPHA_MIN) alpha = 0.f;
-      const float log1m = log1pf(-alpha);
-      const float logT_after = logT + log1m;
-      if (!(expf(logT_after) < T_EPS)) {
-        const float w = alpha * expf(logT);
-        acc_r = acc_r + w * sp[6][j];
-        acc_g = acc_g + w * sp[7][j];
-        acc_b = acc_b + w * sp[8][j];
-      }
-      logT = logT_after;
-    }
-    __syncthreads();
-  }
-  const float T_final = expf(logT);
-  float* o = out + ((long long)t * P + pix) * 3;
-  o[0] = fminf(fmaxf(acc_r + T_final, 0.f), 1.f);
-  o[1] = fminf(fmaxf(acc_g + T_final, 0.f), 1.f);
-  o[2] = fminf(fmaxf(acc_b + T_final, 0.f), 1.f);
+  splat::composite_tile(
+      t, tx, tiles_per_frame, counts[t],
+      [&](int row, int k) { return params[row * np_stride + start + k]; },
+      out);
 }
 
 }  // namespace
@@ -95,7 +44,7 @@ extern "C" int splat_segments_launch(const float* params, long long np_stride,
                                      int n_tiles, int tx, int tiles_per_frame,
                                      float* out, void* stream) {
   if (n_tiles > 0) {
-    seg_composite_kernel<<<n_tiles, P, 0, (cudaStream_t)stream>>>(
+    seg_composite_kernel<<<n_tiles, splat::P, 0, (cudaStream_t)stream>>>(
         params, np_stride, starts, counts, tx, tiles_per_frame, out);
   }
   return (int)cudaGetLastError();

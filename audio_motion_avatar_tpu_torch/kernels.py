@@ -2,7 +2,8 @@
 
 Each `csrc/*.cu` source has a plain C interface and is compiled by `nvcc`
 for `sm_90a` into its own shared library under `<repo>/build/kernels/`,
-named by a hash of the source and flags, and loaded with `ctypes`. `build()`
+named by a hash of the source, the shared `csrc/*.cuh` headers and the
+flags, and loaded with `ctypes`. `build()`
 compiles every missing library in parallel (one nvcc per source, all
 started together); `library(name)` builds one on first use. Nothing is
 compiled or loaded at import time, so the CPU tests can import every module.
@@ -40,6 +41,9 @@ KERNELS = {
         "attention.cu", (),
         {"attention_launch": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I)}),
+    "splat_tiles": (
+        "splat_tiles.cu", ("--fmad=false",),
+        {"splat_tiles_launch": ([_P, _I, _I, _I, _I, _P, _P], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -59,8 +63,10 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> str:
     src, flags, _ = KERNELS[name]
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, src), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for part in [src] + headers:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(_BASE_FLAGS + flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

@@ -1,30 +1,51 @@
-"""Stage-2 composite, rollout wiring only: AudioTriplaneNet rolls the token
-state forward per audio frame, the shared SMPL-X decoder decodes every
-output frame's tokens, and the shared renderer draws the frames. The
-stage-1 reconstruction that produces the initial tokens is a later slice.
+"""Stage-2 composite: the audio-driven triplane avatar.
+
+`triplane_gaussian` is the stage-1 model (models/avatar.py); its SMPL-X
+decoder and renderer are shared with the audio rollout, as in the JAX
+package (and named as in its flax tree). The stage-1 reconstruction turns
+reference frames into the initial (triplane, SMPL-X) token state;
+`AudioTriplaneNet` rolls the state forward per audio frame, the shared
+decoder decodes every output frame's tokens and the shared renderer draws
+the frames.
+
+Built with `num_verts_encoder=None`, the model holds only what a rollout
+from given tokens reads (no image encoder, triplane encoder body or fusion
+network).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..device import compute_dtype as _compute_dtype
 from .audio_net import AudioTriplaneNet
+from .avatar import TriplaneGaussianAvatar
 from .config import AvatarConfig
-from .ptv3 import build_point_refiner
 from .renderer import Renderer, RendererStatics
 from .smplx_decoder import SMPLXDecoder
 from .triplane_encoder import reshape_params
 
 
+class AudioAvatarOutput(NamedTuple):
+    rendered_images: Optional[torch.Tensor]   # (B, T_out, H, W, 3)
+    gaussians: dict
+    pred_smplx_future: dict                   # (B, T_out, ...)
+    output_triplane_tokens: torch.Tensor      # (B, T_out, C, S)
+    output_smpl_tokens: torch.Tensor          # (B, T_out, C, L)
+    ref_triplane_tokens: torch.Tensor         # (B, T_in, C, S)
+    ref_smpl_tokens: torch.Tensor             # (B, T_in, C, L)
+    ref_rendered: Optional[torch.Tensor]
+
+
 class AudioDrivenAvatar(nn.Module):
-    def __init__(self, cfg: AvatarConfig):
+    def __init__(self, cfg: AvatarConfig, num_verts_encoder: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        dt = _compute_dtype(cfg.compute_dtype)
+        self.triplane_gaussian = TriplaneGaussianAvatar(
+            cfg, num_verts_encoder or 0, stage1=num_verts_encoder is not None)
         self.audio_triplane = AudioTriplaneNet(
             feature_dim=cfg.triplane_feature_dim,
             triplane_resolution=cfg.triplane_resolution,
@@ -35,13 +56,32 @@ class AudioDrivenAvatar(nn.Module):
             head_dim=cfg.audio_transformer_head_dim,
             heads=cfg.audio_transformer_num_heads,
             audio_feature_dim=cfg.audio_feature_dim,
-            compute_dtype=dt, gelu_approx=cfg.gelu_approx)
-        self.smpl_decoder = SMPLXDecoder(cfg.smpl_token_dim, cfg.smpl_token_len,
-                                         cfg.num_expression_coeffs)
-        refiner: Optional[nn.Module] = None
-        if not cfg.no_point_refiner:
-            refiner = build_point_refiner(cfg, dtype=dt)
-        self.renderer = Renderer(cfg, point_refiner=refiner, compute_dtype=dt)
+            compute_dtype=_compute_dtype(cfg.compute_dtype),
+            gelu_approx=cfg.gelu_approx)
+
+    @property
+    def smpl_decoder(self) -> SMPLXDecoder:
+        return self.triplane_gaussian.smpl_decoder
+
+    @property
+    def renderer(self) -> Renderer:
+        return self.triplane_gaussian.renderer
+
+    def stage1_tokens(self, statics: RendererStatics, images: torch.Tensor,
+                      smpl_params: Optional[dict], cams: dict):
+        """Reference frames (B, T_in, 3, H, W) -> the initial (triplane
+        tokens (B, T_in, C, S), SMPL-X tokens (B, T_in, C, L)): the stage-1
+        forward with the render off."""
+        out = self.triplane_gaussian(statics, images, smpl_params, cams,
+                                     render=False)
+        return out.triplane_tokens, out.smpl_tokens
+
+    def _decode_and_render(self, statics, out_tri, out_smpl, cams):
+        B, T = out_smpl.shape[:2]
+        flat = out_smpl.reshape((B * T,) + out_smpl.shape[2:])
+        pred = reshape_params(self.smpl_decoder(flat), (B, T))
+        rendered, gaussians = self.renderer(statics, out_tri, cams, pred)
+        return rendered, pred, gaussians
 
     def rollout(self, statics: RendererStatics, triplanes: torch.Tensor,
                 smpl_tokens: torch.Tensor, audio: torch.Tensor, cams: dict):
@@ -49,8 +89,21 @@ class AudioDrivenAvatar(nn.Module):
         (B, T_out, C_a), cameras (B, T_out, ...) -> (rendered (B, T_out, H,
         W, 3), out_tri, out_smpl, pred params (B, T_out, ...))."""
         out_tri, out_smpl = self.audio_triplane(audio, triplanes, smpl_tokens)
-        B, T = out_smpl.shape[:2]
-        flat = out_smpl.reshape((B * T,) + out_smpl.shape[2:])
-        pred = reshape_params(self.smpl_decoder(flat), (B, T))
-        rendered = self.renderer(statics, out_tri, cams, pred)
+        rendered, pred, _ = self._decode_and_render(statics, out_tri, out_smpl, cams)
         return rendered, out_tri, out_smpl, pred
+
+    def forward(self, statics: RendererStatics, ref_images: torch.Tensor,
+                ref_smpl_params: Optional[dict], ref_cam_params: dict,
+                audio_features: torch.Tensor, target_cam_params: dict,
+                render_ref: bool = False) -> AudioAvatarOutput:
+        """The JAX package's AudioDrivenAvatar.__call__ without the training
+        cache swap: stage-1 reconstruction of the reference frames, one
+        audio rollout from its tokens, the targets rendered."""
+        out1 = self.triplane_gaussian(statics, ref_images, ref_smpl_params,
+                                      ref_cam_params, render=render_ref)
+        tri, smpl = out1.triplane_tokens, out1.smpl_tokens
+        out_tri, out_smpl = self.audio_triplane(audio_features, tri, smpl)
+        rendered, pred, gaussians = self._decode_and_render(
+            statics, out_tri, out_smpl, target_cam_params)
+        return AudioAvatarOutput(rendered, gaussians, pred, out_tri, out_smpl,
+                                 tri, smpl, out1.rendered_images)

@@ -1,16 +1,20 @@
 """Renderer: triplane tokens -> 3D Gaussians -> splatted frames.
 
-The serving path of the JAX package's Renderer: tokens -> low-res planes;
-SMPL-X FK/LBS + midpoint subdivision + frozen sub-selection -> body points;
-per frame chunk (frames_per_chunk frames): sparse-final-level upsampling,
-ONE quad-row build (kernel Q) shared by two sparse triplane samplings
-around the PTv3 point refiner, the five gaussian heads as one fused matmul,
-and the segmented splat (kernel S).
+Low-res planes from the tokens; SMPL-X FK/LBS + midpoint subdivision +
+frozen sub-selection -> body points; per frame chunk (frames_per_chunk
+frames): the triplane upsampler, two triplane samplings around the PTv3
+point refiner, the five gaussian heads as one fused matmul, and the splat.
 
-Only the serving form is ported (upsample_triplane with upsampler_sparse,
-sample_quad, splat_segmented, the dilated upconv, rgb colours); other
-combinations of those knobs raise. It returns the frames only: the JAX
-renderer's gaussians output feeds the training losses, a later slice.
+Two forms, as the JAX package's Renderer selects them:
+  * serving (upsampler_sparse + sample_quad): the final upsample level on
+    covered tiles only, ONE quad-row build (kernel Q) shared by both
+    samplings; typically with the segmented splat (kernel S);
+  * default (dense upsampler, `sample_triplane_nhwc`): the full-resolution
+    planes, sampled bilinearly; typically with the tile splat (kernel K1).
+splat_segmented picks the splat: kernel S, or the binned tile composite
+K1 (ops/splat_tiles.py). Other knob values (the 4-tap sparse sampler,
+Winograd convs, SH colours) raise. The forward returns (frames, gaussians)
+as the JAX renderer does.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from torch import nn
 
 from ..ops import smplx as smplx_ops
 from ..ops import subdivision
+from ..ops import splat_tiles
 from ..ops.math_utils import inverse_sigmoid
 from ..ops.splat_segmented import render_frames_segmented
-from ..ops.triplane import (PLANE_AXES, build_quad, sample_triplane_sparse_quad,
-                            tokens_to_planes)
+from ..ops.triplane import (PLANE_AXES, build_quad, sample_triplane_nhwc,
+                            sample_triplane_sparse_quad, tokens_to_planes)
 from .triplane_encoder import flatten_params
 from .upsampler import TriplaneUpsampler
 
@@ -59,26 +64,37 @@ def build_renderer_statics(model: smplx_ops.SmplxModel, device,
                            torch.as_tensor(sel.astype(np.int64), device=device))
 
 
-def _check_serving(cfg) -> None:
-    want = {"upsample_triplane": True, "upsampler_sparse": True,
-            "sample_quad": True, "splat_segmented": True,
-            "upsampler_upconv": "dilated", "upsampler_conv": "xla",
-            "rgb": True}
-    bad = {k: getattr(cfg, k) for k, v in want.items() if getattr(cfg, k) != v}
+def _check_supported(cfg) -> None:
+    """Raise on render knobs the port does not implement."""
+    bad = {}
+    if not cfg.upsample_triplane:
+        bad["upsample_triplane"] = cfg.upsample_triplane
+    if cfg.upsampler_sparse != cfg.sample_quad:
+        bad["sample_quad"] = cfg.sample_quad   # the sparse path samples by quads
+    if cfg.upsampler_upconv not in ("dilated", "poly"):
+        bad["upsampler_upconv"] = cfg.upsampler_upconv
+    if cfg.upsampler_conv != "xla":
+        bad["upsampler_conv"] = cfg.upsampler_conv
+    if not cfg.rgb:
+        bad["rgb"] = cfg.rgb
     if bad:
         raise NotImplementedError(
-            f"the port renders the serving path only ({want}); got {bad}")
+            "the port renders the serving form (upsampler_sparse and "
+            "sample_quad) or the default form (neither), with the "
+            "dilated / poly up-convolution, direct convs and RGB colours; "
+            f"got {bad}")
 
 
 class Renderer(nn.Module):
     def __init__(self, cfg, point_refiner: Optional[nn.Module] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _check_serving(cfg)
+        _check_supported(cfg)
         self.cfg = cfg
         C = cfg.triplane_feature_dim
         self.upsampler = TriplaneUpsampler(
-            C, cfg.num_upsample_blocks, dtype=compute_dtype, sparse_final=True,
+            C, cfg.num_upsample_blocks, dtype=compute_dtype,
+            sparse_final=cfg.upsampler_sparse,
             sparse_max_tiles=cfg.upsampler_sparse_max_tiles,
             sparse_tile_px=cfg.upsampler_sparse_tile_px,
             norm_mode=cfg.upsampler_norm)
@@ -125,20 +141,30 @@ class Renderer(nn.Module):
 
     def _render_frame(self, planes_lr, points, transl, K, E):
         """One chunk: (F, 3, C, R, R) planes, (F, N, 3) points, (F, 1, 3)
-        transl, (F, 3, 3) / (F, 4, 4) cameras -> (F, H, W, 3) frames."""
+        transl, (F, 3, 3) / (F, 4, 4) cameras -> (gaussians dict (F, N, ...),
+        (F, H, W, 3) frames)."""
         cfg = self.cfg
         radius = cfg.radius
-        u = torch.clamp(points / radius, -1.0, 1.0)
-        uv = torch.stack([torch.stack([u[..., a0], u[..., a1]], -1)
-                          for a0, a1 in PLANE_AXES], 1)          # (F, 3, N, 2)
-        planes = self.upsampler(planes_lr, points_uv=uv)
-        quad = build_quad(planes.tiles, planes.slot, planes.grid)
+        if cfg.upsampler_sparse:
+            u = torch.clamp(points / radius, -1.0, 1.0)
+            uv = torch.stack([torch.stack([u[..., a0], u[..., a1]], -1)
+                              for a0, a1 in PLANE_AXES], 1)      # (F, 3, N, 2)
+            planes = self.upsampler(planes_lr, points_uv=uv)
+            quad = build_quad(planes.tiles, planes.slot, planes.grid)
 
-        feats = sample_triplane_sparse_quad(planes, quad, points, radius)
+            def sample(p):
+                return sample_triplane_sparse_quad(planes, quad, p, radius)
+        else:
+            planes = self.upsampler(planes_lr)                    # (F, 3, H, W, C)
+
+            def sample(p):
+                return sample_triplane_nhwc(planes, p, radius)
+
+        feats = sample(points)
         if self.point_refiner is not None:
             offsets = self.refine_mlp(self.point_refiner(points, feats))
             points = points + offsets
-            feats = sample_triplane_sparse_quad(planes, quad, points, radius)
+            feats = sample(points)
 
         dec_in = torch.cat([points, feats], -1)
         heads = self._heads()
@@ -147,17 +173,26 @@ class Renderer(nn.Module):
         xyz_off, rot, scale, opacity, shs = torch.split(
             torch.nn.functional.linear(dec_in, w, b), [3, 4, 3, 1, 3], -1)
         rot = rot / torch.clamp(torch.linalg.norm(rot, dim=-1, keepdim=True), min=1e-8)
-        H, W = cfg.image_size
         # colours through the sigmoid in both colour modes (reference quirk)
-        return render_frames_segmented(
-            points + xyz_off + transl, rot, scale, opacity[..., 0],
-            torch.sigmoid(shs), K, E, W, H, max_per_tile=cfg.max_per_tile,
-            max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap)
+        gaussians = {"xyz": points + xyz_off + transl, "scale": scale,
+                     "rot": rot, "opacity": opacity, "color": torch.sigmoid(shs)}
+        H, W = cfg.image_size
+        args = (gaussians["xyz"], rot, scale, opacity[..., 0], gaussians["color"],
+                K, E, W, H)
+        if cfg.splat_segmented:
+            img = render_frames_segmented(
+                *args, max_per_tile=cfg.max_per_tile,
+                max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap)
+        else:
+            img = splat_tiles.render_frames(*args, max_per_tile=cfg.max_per_tile,
+                                            max_window=cfg.splat_max_window)
+        return gaussians, img
 
     def forward(self, statics: RendererStatics, triplane_tokens: torch.Tensor,
-                cam_params: dict, smpl_params: dict) -> torch.Tensor:
+                cam_params: dict, smpl_params: dict):
         """triplane tokens (B, T, C, 3RR), decoded params (B, T, ...) ->
-        rendered (B, T, H, W, 3), frames_per_chunk frames at a time."""
+        (rendered (B, T, H, W, 3), gaussians dict (BT, N, ...) with "shs" =
+        "color"), frames_per_chunk frames at a time."""
         cfg = self.cfg
         B, T = triplane_tokens.shape[:2]
         BT = B * T
@@ -172,7 +207,10 @@ class Renderer(nn.Module):
         F = cfg.frames_per_chunk
         if F <= 0 or BT % F:
             F = 1
-        imgs = [self._render_frame(planes_lr[c:c + F], points[c:c + F],
-                                   transl[c:c + F], Ks[c:c + F], Es[c:c + F])
-                for c in range(0, BT, F)]
-        return torch.cat(imgs).reshape((B, T) + imgs[0].shape[1:])
+        chunks = [self._render_frame(planes_lr[c:c + F], points[c:c + F],
+                                     transl[c:c + F], Ks[c:c + F], Es[c:c + F])
+                  for c in range(0, BT, F)]
+        gaussians = {k: torch.cat([g[k] for g, _ in chunks]) for k in chunks[0][0]}
+        gaussians["shs"] = gaussians["color"]
+        imgs = torch.cat([img for _, img in chunks])
+        return imgs.reshape((B, T) + imgs.shape[1:]), gaussians

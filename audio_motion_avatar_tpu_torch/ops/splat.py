@@ -116,6 +116,97 @@ def project_gaussians(means3d: torch.Tensor, quats: torch.Tensor,
                      opacity=opacity_act, color=colors, valid=valid)
 
 
+def bin_gaussians_sorted(proj: Projected, width: int, height: int,
+                         max_per_tile: int, max_window: int = 8):
+    """Sort-based tile binning of ONE view (proj fields (N, ...)): every
+    depth-ordered gaussian emits the max_window^2 tile window at its bbox
+    corner (pairs outside the bbox masked); the (tile, depth rank) pairs
+    are sorted once and each tile keeps its first K = min(max_per_tile, N).
+
+    Returns (order (N,) depth argsort, tile_idx (T, K) indices into the
+    depth-ordered arrays, tile_mask (T, K) bool). The key is the JAX
+    package's: (tile << rank_bits) | rank, dead pairs on a sentinel tile,
+    one stable sort (int64 here, so the packed and the two-key forms are
+    the same sort; the sentinel follows the form the JAX package picks)."""
+    tx, ty = width // TILE, height // TILE
+    n_tiles = tx * ty
+    n = proj.mean2d.shape[0]
+    K = min(max_per_tile, n)
+    W2 = max_window * max_window
+    dev = proj.mean2d.device
+
+    order = torch.argsort(proj.depth, stable=True)
+    mean2d = proj.mean2d[order]
+    radius = torch.where(proj.valid[order], proj.radius[order],
+                         torch.zeros_like(proj.radius[order]))
+    x0r = torch.floor((mean2d[:, 0] - radius) / TILE)
+    x1r = torch.floor((mean2d[:, 0] + radius) / TILE)
+    y0r = torch.floor((mean2d[:, 1] - radius) / TILE)
+    y1r = torch.floor((mean2d[:, 1] + radius) / TILE)
+    alive = (radius > 0) & (x1r >= 0) & (x0r <= tx - 1) & (y1r >= 0) & \
+        (y0r <= ty - 1)
+    x0 = x0r.clamp(0, tx - 1).long()
+    x1 = x1r.clamp(0, tx - 1).long()
+    y0 = y0r.clamp(0, ty - 1).long()
+    y1 = y1r.clamp(0, ty - 1).long()
+    off = torch.arange(max_window, device=dev)
+    gx = x0[:, None] + off
+    gy = y0[:, None] + off
+    vx = (gx <= x1[:, None]) & (gx < tx)
+    vy = (gy <= y1[:, None]) & (gy < ty)
+    tile_id = gy[:, :, None] * tx + gx[:, None, :]                 # (N, W, W)
+    valid = vy[:, :, None] & vx[:, None, :] & alive[:, None, None]
+
+    rank = torch.arange(n, device=dev)[:, None, None]
+    rank_bits = max(1, (n - 1).bit_length())
+    packed = (n_tiles + 1) << rank_bits <= 2 ** 31 - 1
+    dead = (n_tiles << rank_bits) if packed else (n_tiles << rank_bits) | rank
+    key = torch.where(valid, (tile_id << rank_bits) | rank, dead).reshape(-1)
+    keys_sorted, sidx = torch.sort(key, stable=True)
+    vals_sorted = sidx // W2                                       # gaussian rank
+    bounds = torch.searchsorted(
+        keys_sorted, torch.arange(n_tiles + 1, device=dev) << rank_bits)
+    starts = bounds[:-1]
+    counts = torch.clamp(bounds[1:] - starts, max=K)
+    gidx = torch.clamp(starts[:, None] + torch.arange(K, device=dev), 0, n * W2 - 1)
+    tile_idx = vals_sorted[gidx]
+    tile_mask = torch.arange(K, device=dev)[None, :] < counts[:, None]
+    return order, tile_idx, tile_mask
+
+
+def blend_tiles_plain(slot, n_slots: int, n_tiles: int, tx: int,
+                      tiles_per_frame: int, device) -> torch.Tensor:
+    """The plain version of the kernels' per-tile blend (S and K1): the
+    same sequential front-to-back rule, operation for operation, vectorised
+    over tiles and pixels, one gaussian slot per step. slot(j) -> (9, T)
+    params [mx, my, cxx, cxy, cyy, op, r, g, b] of slot j of every tile
+    (op 0 where a tile has no gaussian there) -> (T, 256, 3)."""
+    P = TILE * TILE
+    pix = torch.arange(P, device=device)
+    tid = torch.arange(n_tiles, device=device) % tiles_per_frame
+    px = (pix % TILE).float()[None, :] + ((tid % tx) * TILE).float()[:, None]
+    py = (pix // TILE).float()[None, :] + ((tid // tx) * TILE).float()[:, None]
+    logT = torch.zeros(n_tiles, P, device=device)
+    acc = torch.zeros(3, n_tiles, P, device=device)
+    for j in range(n_slots):
+        g = slot(j)
+        dx = px - g[0][:, None]
+        dy = py - g[1][:, None]
+        power = (-0.5 * (g[2][:, None] * dx * dx + g[4][:, None] * dy * dy)
+                 - g[3][:, None] * dx * dy)
+        alpha = torch.clamp(g[5][:, None] * torch.exp(torch.clamp(power, max=0.0)),
+                            max=ALPHA_MAX)
+        alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN),
+                            torch.zeros_like(alpha), alpha)
+        logT_after = logT + torch.log1p(-alpha)
+        w = alpha * torch.exp(logT)
+        w = torch.where(torch.exp(logT_after) < T_EPS, torch.zeros_like(w), w)
+        acc = acc + w[None] * g[6:9][:, :, None]
+        logT = logT_after
+    out = torch.clamp(acc + torch.exp(logT)[None], 0.0, 1.0)
+    return out.permute(1, 2, 0).contiguous()
+
+
 def render_naive(proj: Projected, width: int, height: int,
                  bg_color=(1.0, 1.0, 1.0)) -> torch.Tensor:
     """Gold reference for ONE frame: all N gaussians vs all pixels,

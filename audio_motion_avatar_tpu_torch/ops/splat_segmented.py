@@ -23,8 +23,8 @@ import torch
 
 from .. import kernels
 from .cameras import make_camera
-from .splat import (ALPHA_MAX, ALPHA_MIN, T_EPS, TILE, Projected,
-                    activate_opacity, activate_scales, project_gaussians)
+from .splat import (TILE, Projected, activate_opacity, activate_scales,
+                    blend_tiles_plain, project_gaussians)
 
 P = TILE * TILE   # pixels per tile
 NPARAM = 9        # mx, my, cxx, cxy, cyy, opacity, r, g, b
@@ -127,38 +127,19 @@ def pack_sorted_params(proj: Projected, width: int, height: int,
 def composite_segments_plain(params: torch.Tensor, starts: torch.Tensor,
                              counts: torch.Tensor, tx: int,
                              tiles_per_frame: int) -> torch.Tensor:
-    """Plain version of kernel S: the same sequential front-to-back blend,
-    vectorized over tiles and pixels, one segment position per step.
-    (9, NP), (T,), (T,) -> (T, 256, 3)."""
+    """Plain version of kernel S (splat.blend_tiles_plain), one segment
+    position per step. (9, NP), (T,), (T,) -> (T, 256, 3)."""
     T = starts.shape[0]
-    dev = params.device
-    pix = torch.arange(P, device=dev)
-    tid = torch.arange(T, device=dev) % tiles_per_frame
-    px = (pix % TILE).float()[None, :] + ((tid % tx) * TILE).float()[:, None]
-    py = (pix // TILE).float()[None, :] + ((tid // tx) * TILE).float()[:, None]
-    logT = torch.zeros(T, P, device=dev)
-    acc = torch.zeros(3, T, P, device=dev)
     starts64, counts64 = starts.long(), counts.long()
-    kmax = int(counts.max()) if T else 0
-    for j in range(kmax):
+
+    def slot(j):
         live = j < counts64
         g = params[:, torch.where(live, starts64 + j, 0)]          # (9, T)
-        op = torch.where(live, g[5], torch.zeros_like(g[5]))
-        dx = px - g[0][:, None]
-        dy = py - g[1][:, None]
-        power = (-0.5 * (g[2][:, None] * dx * dx + g[4][:, None] * dy * dy)
-                 - g[3][:, None] * dx * dy)
-        alpha = torch.clamp(op[:, None] * torch.exp(torch.clamp(power, max=0.0)),
-                            max=ALPHA_MAX)
-        alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN),
-                            torch.zeros_like(alpha), alpha)
-        logT_after = logT + torch.log1p(-alpha)
-        w = alpha * torch.exp(logT)
-        w = torch.where(torch.exp(logT_after) < T_EPS, torch.zeros_like(w), w)
-        acc = acc + w[None] * g[6:9][:, :, None]
-        logT = logT_after
-    out = torch.clamp(acc + torch.exp(logT)[None], 0.0, 1.0)
-    return out.permute(1, 2, 0).contiguous()
+        return torch.cat([g[:5], torch.where(live, g[5], torch.zeros_like(g[5]))[None],
+                          g[6:]])
+
+    kmax = int(counts.max()) if T else 0
+    return blend_tiles_plain(slot, kmax, T, tx, tiles_per_frame, params.device)
 
 
 def composite_segments(params: torch.Tensor, starts: torch.Tensor,

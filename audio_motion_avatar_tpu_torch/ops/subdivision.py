@@ -64,6 +64,15 @@ def apply_subdivision(verts: torch.Tensor,
     return out
 
 
+def face_center_densify(verts: torch.Tensor, faces: np.ndarray) -> torch.Tensor:
+    """verts (..., V, 3) + static faces (F, 3) -> (..., V + F, 3): the
+    face centroids appended (the stage-1 encoder's densification). The
+    centroid is the sum times 1/3, as XLA lowers the JAX package's mean."""
+    f = torch.as_tensor(np.asarray(faces, np.int64), device=verts.device)
+    fv = verts[..., f.reshape(-1), :].reshape(verts.shape[:-2] + (f.shape[0], 3, 3))
+    return torch.cat([verts, fv.sum(-2) * (1.0 / 3.0)], -2)
+
+
 def fixed_subselect(num_available: int, num_keep: int,
                     seed: int = 0) -> np.ndarray:
     """Frozen random permutation prefix (the reference redraws per call)."""

@@ -29,6 +29,96 @@ def tokens_to_planes(tokens: torch.Tensor, resolution: int) -> torch.Tensor:
     return x.movedim(-4, -3)
 
 
+def planes_to_tokens(planes: torch.Tensor) -> torch.Tensor:
+    """(..., 3, C, R, R) -> (..., C, 3*R*R)."""
+    *lead, P, C, H, W = planes.shape
+    return planes.movedim(-4, -3).reshape(*lead, C, P * H * W)
+
+
+def plane_cell_index(points: torch.Tensor, radius: float,
+                     resolution: int) -> torch.Tensor:
+    """(..., N, 3) world points -> (..., 3, N) cell ids col + R*row in
+    [0, R^2) of the encoder's [0, 1]-normalised planes."""
+    p = torch.clamp(points, -radius + 1e-6, radius - 1e-6)
+    u = (p + radius) / (2.0 * radius)
+    idx = []
+    for a0, a1 in PLANE_AXES:
+        c0 = torch.floor(u[..., a0] * resolution).long()
+        c1 = torch.floor(u[..., a1] * resolution).long()
+        idx.append(torch.clamp(c0 + resolution * c1, 0, resolution * resolution - 1))
+    return torch.stack(idx, -2)
+
+
+def _segment_max_gather(values: torch.Tensor, index: torch.Tensor,
+                        size: int) -> torch.Tensor:
+    """(B, N, C), (B, N) -> (B, N, C): every point gets the max over its
+    cell; an empty cell reads 0."""
+    B, N, C = values.shape
+    idx = index[..., None].expand(B, N, C)
+    seg = values.new_zeros(B, size, C).scatter_reduce(
+        1, idx, values, "amax", include_self=False)
+    return torch.gather(seg, 1, idx)
+
+
+def pool_local_max(values: torch.Tensor, cell_index: torch.Tensor,
+                   resolution: int) -> torch.Tensor:
+    """Local max-pool summed over the three planes: values (B, N, C),
+    cell_index (B, 3, N) -> (B, N, C)."""
+    size = resolution * resolution
+    return sum(_segment_max_gather(values, cell_index[:, p], size) for p in range(3))
+
+
+def scatter_mean_plane(values: torch.Tensor, cell_index: torch.Tensor,
+                       resolution: int) -> torch.Tensor:
+    """Mean of the point features in each cell: values (B, N, C),
+    cell_index (B, N) -> (B, C, R, R); empty cells are 0."""
+    B, N, C = values.shape
+    size = resolution * resolution
+    s = values.new_zeros(B, size, C).scatter_add_(
+        1, cell_index[..., None].expand(B, N, C), values)
+    cnt = values.new_zeros(B, size, 1).scatter_add_(
+        1, cell_index[..., None], values.new_ones(B, N, 1))
+    mean = s / torch.clamp(cnt, min=1.0)
+    return mean.reshape(B, resolution, resolution, C).permute(0, 3, 1, 2)
+
+
+def grid_sample_2d_nhwc(feat: torch.Tensor, grid_xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of channel-last planes (align_corners=False, zero
+    padding): feat (Bq, H, W, C), grid_xy (Bq, N, 2) in [-1, 1] -> (Bq, N,
+    C) float32. Taps gather in the planes' dtype, weights and sums fp32."""
+    Bq, H, W, C = feat.shape
+    rows = feat.reshape(Bq, H * W, C)
+    x = (grid_xy[..., 0] + 1.0) * (W * 0.5) - 0.5
+    y = (grid_xy[..., 1] + 1.0) * (H * 0.5) - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    x0i, y0i = x0.long(), y0.long()
+    b = torch.arange(Bq, device=feat.device)[:, None]
+
+    def tap(xi, yi, w):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        idx = torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)
+        return rows[b, idx].float() * (w * inb)[..., None]
+
+    return (tap(x0i, y0i, wx0 * wy0) + tap(x0i + 1, y0i, wx1 * wy0)
+            + tap(x0i, y0i + 1, wx0 * wy1) + tap(x0i + 1, y0i + 1, wx1 * wy1))
+
+
+def sample_triplane_nhwc(planes: torch.Tensor, points: torch.Tensor,
+                         radius: float) -> torch.Tensor:
+    """Dense triplane sampling: planes (B, 3, H, W, C) channel-last, points
+    (B, N, 3) world -> (B, N, 3C) float32 ordered [xy, xz, yz]."""
+    B, N, _ = points.shape
+    u = torch.clamp(points / radius, -1.0, 1.0)
+    g = torch.stack([torch.stack([u[..., a0], u[..., a1]], -1)
+                     for a0, a1 in PLANE_AXES], 1)               # (B, 3, N, 2)
+    feats = grid_sample_2d_nhwc(planes.reshape((B * 3,) + planes.shape[2:]),
+                                g.reshape(B * 3, N, 2))
+    C = feats.shape[-1]
+    return feats.reshape(B, 3, N, C).permute(0, 2, 1, 3).reshape(B, N, 3 * C)
+
+
 def neighbor_slots(slot: torch.Tensor, grid: int, cap: int):
     """Right / bottom / diagonal neighbour SLOT of every slot, missing or
     uncovered neighbours mapped to `cap`. slot: (FP, G*G) tile -> slot (-1

@@ -3,9 +3,12 @@
 `build_rollout(cfg, device, dtype)` builds the stage-2 serving model and its
 renderer statics; the returned `Rollout` maps (triplane tokens, SMPL-X
 tokens, audio features, cameras) to (rendered frames, next triplane token
-window, next SMPL-X token window, decoded params). `serve` is the host loop
-that answers requests in order, sliding the last-T_in token window from one
-chunk to the next, as the two-stream demo does.
+window, next SMPL-X token window, decoded params). Built with stage1=True it
+also holds the stage-1 encoder stack, and `Rollout.tokens` turns reference
+frames into the initial token window (the demo's stage-1 pass, render off).
+`serve` is the host loop that answers requests in order, sliding the
+last-T_in token window from one chunk to the next, as the two-stream demo
+does.
 
 Geometry (SMPL-X FK/LBS, projection, splatting) runs in fp32 with TF32 off;
 the transformer, refiner and upsampler stacks run in cfg.compute_dtype
@@ -48,43 +51,78 @@ class Rollout:
             self.statics, tri, smpl, audio, cams)
         return rendered, out_tri[:, -T_in:], out_smpl[:, -T_in:], pred
 
+    @torch.no_grad()
+    def tokens(self, images: torch.Tensor, smpl_params: Optional[dict],
+               cams: dict):
+        """Reference frames (B, T_in, 3, H, W) in [0, 1], their SMPL-X
+        params and cameras -> the initial (triplane, SMPL-X) token window."""
+        return self.model.stage1_tokens(self.statics, images, smpl_params, cams)
+
+
+def check_kernel_dtype(cfg: AvatarConfig, device: torch.device,
+                       stage1: bool) -> None:
+    """Kernel A takes bf16 operands: on the card, a configuration whose
+    compute dtype is not bf16 may not have 64-wide heads in the stacks that
+    run in it (the audio transformer, the PTv3 refiner and, with stage1,
+    the SMPL-X predictor and the fusion transformer; the ViT runs in bf16
+    whatever the config says)."""
+    widths = [cfg.audio_transformer_head_dim] + [
+        c // h for c, h in zip(cfg.ptv3_enc_channels + cfg.ptv3_dec_channels,
+                               cfg.ptv3_enc_heads + cfg.ptv3_dec_heads)]
+    if stage1:
+        widths += [cfg.smplx_transformer_head_dim, cfg.cross_transformer_head_dim]
+    if device.type == "cuda" and cfg.compute_dtype != "bfloat16" and \
+            KERNEL_HEAD_DIM in widths:
+        raise ValueError(
+            f"head width {KERNEL_HEAD_DIM} runs through kernel A, which takes "
+            f"bf16 operands: build with dtype=torch.bfloat16 "
+            f"(compute_dtype is {cfg.compute_dtype!r})")
+
+
+def with_dtype(cfg: AvatarConfig, dtype: Optional[torch.dtype]) -> AvatarConfig:
+    """cfg with compute_dtype set from a torch dtype (None keeps it)."""
+    if dtype is None:
+        return cfg
+    name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype]
+    return dataclasses.replace(cfg, compute_dtype=name)
+
+
+def num_verts_encoder(smplx_model: smplx_ops.SmplxModel) -> int:
+    """The stage-1 encoder's vertex count: the body's vertices plus its face
+    centres."""
+    return int(np.asarray(smplx_model.v_template).shape[0]) + \
+        int(np.asarray(smplx_model.faces).shape[0])
+
 
 def build_rollout(cfg: AvatarConfig, device=None,
                   dtype: Optional[torch.dtype] = None,
                   smplx_model: Optional[smplx_ops.SmplxModel] = None,
-                  state_dict: Optional[dict] = None, seed: int = 0) -> Rollout:
+                  state_dict: Optional[dict] = None, seed: int = 0,
+                  stage1: bool = False) -> Rollout:
     """Serving model on `device` (CUDA unless "cpu" is asked for).
 
     dtype: compute dtype of the transformer / refiner / upsampler stacks
     (torch.bfloat16 on the card; None keeps cfg.compute_dtype). Weights come
     from `state_dict` (e.g. weights.params_from_flax) or a seeded init.
     smplx_model: numpy SMPL-X model (default: the synthetic stand-in).
+    stage1: also build the stage-1 encoder stack (for `Rollout.tokens`).
 
     On the card, a configuration with head width 64 (kernel A's, which
-    takes bf16 operands) needs the bf16 compute dtype; fp32 raises here.
-    The geometry turns TF32 off for its own matmuls (device.fp32_geometry);
-    no global setting is changed."""
+    takes bf16 operands) needs the bf16 compute dtype; fp32 raises here
+    (check_kernel_dtype). The geometry turns TF32 off for its own matmuls
+    (device.fp32_geometry); no global setting is changed."""
     device = resolve_device(device)
-    if dtype is not None:
-        name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype]
-        cfg = dataclasses.replace(cfg, compute_dtype=name)
-    widths = [cfg.audio_transformer_head_dim] + [
-        c // h for c, h in zip(cfg.ptv3_enc_channels + cfg.ptv3_dec_channels,
-                               cfg.ptv3_enc_heads + cfg.ptv3_dec_heads)]
-    if device.type == "cuda" and cfg.compute_dtype != "bfloat16" and \
-            KERNEL_HEAD_DIM in widths:
-        raise ValueError(
-            f"head width {KERNEL_HEAD_DIM} runs through kernel A, which takes "
-            f"bf16 operands: build the rollout with dtype=torch.bfloat16 "
-            f"(compute_dtype is {cfg.compute_dtype!r})")
-    model = AudioDrivenAvatar(cfg)
+    cfg = with_dtype(cfg, dtype)
+    check_kernel_dtype(cfg, device, stage1)
+    if smplx_model is None:
+        smplx_model = smplx_ops.synthetic_model(seed=0)
+    model = AudioDrivenAvatar(
+        cfg, num_verts_encoder(smplx_model) if stage1 else None)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:
         init_weights(model, seed)
     model.to(device).eval()
-    if smplx_model is None:
-        smplx_model = smplx_ops.synthetic_model(seed=0)
     statics = build_renderer_statics(smplx_model, device,
                                      subdivide_steps=cfg.subdivide_steps,
                                      densify=cfg.densify_smplx_verts)

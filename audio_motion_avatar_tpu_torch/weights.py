@@ -2,15 +2,19 @@
 
 `params_from_flax` takes the JAX package's parameter tree as nested dicts of
 numpy arrays (convert a flax tree with jax.tree_util.tree_map(np.asarray,
-...)) and returns the state_dict of models.audio_avatar.AudioDrivenAvatar.
-It maps every subtree the serving rollout reads, skips the stage-1 subtrees
-it does not (listed in STAGE1_SUBTREES), and raises on any other key.
+...)) of an AudioDrivenAvatar or a TriplaneGaussianAvatar and returns the
+state_dict of the port's model of the same name. The port's modules carry
+the flax names, so a leaf's key is its flax path; the one exception is the
+point refiner, which the JAX package passes in from outside (its params sit
+at the tree's top level) and the port keeps inside the renderer. Every leaf
+is mapped; a subtree or leaf the port does not know raises.
 
 Layout changes: Dense (in, out) -> Linear (out, in); conv HWIO -> OIHW;
 attention kernels (C, H, D) / (H, D, C) -> Linear over H*D; biases (H, D)
 -> (H*D,); the serial CPE (3, 1, C) -> depthwise (C, 1, 3); time_kernel
 (3, C, T) -> the reference Conv3d weight (3C, 1, T, 1, 1); LayerNorm /
-GroupNorm / affine `scale` -> `weight`.
+GroupNorm / affine `scale` and Embed `embedding` -> `weight`; raw params
+(pos_embed, smpl_tokens, the tokenizer's embeddings) keep name and layout.
 """
 
 from __future__ import annotations
@@ -22,20 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
-# flax path prefix -> state_dict prefix
-PREFIXES = (
-    (("audio_triplane",), "audio_triplane"),
-    (("triplane_gaussian", "smplx_triplane_encoder", "smpl_decoder"), "smpl_decoder"),
-    (("triplane_gaussian", "renderer"), "renderer"),
-    (("point_refiner",), "renderer.point_refiner"),
-)
-# stage-1 parameters the rollout never reads (the stage-1 slice ports them)
-STAGE1_SUBTREES = (
-    ("triplane_gaussian", "sapiens_encoder"),
-    ("triplane_gaussian", "image_feature"),
-    ("triplane_gaussian", "fusion_network"),
-    ("triplane_gaussian", "smplx_triplane_encoder"),
-)
+# top-level subtrees of an AudioDrivenAvatar / a TriplaneGaussianAvatar tree
+STAGE2_ROOTS = ("triplane_gaussian", "audio_triplane", "point_refiner")
+STAGE1_ROOTS = ("sapiens_encoder", "image_feature", "smplx_triplane_encoder",
+                "fusion_network", "renderer", "point_refiner")
+# params declared with self.param in flax (no Dense / Conv / Embed around them)
+RAW_PARAMS = ("pos_embed", "smpl_tokens", "embeddings")
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -66,6 +62,10 @@ def _convert_leaf(path: tuple, a: np.ndarray) -> Tuple[str, np.ndarray]:
         return leaf, a.reshape(-1)
     elif leaf == "scale" and a.ndim == 1:
         return "weight", a
+    elif leaf == "embedding" and a.ndim == 2:
+        return "weight", a
+    elif leaf in RAW_PARAMS:
+        return leaf, a
     elif leaf == "time_kernel" and a.ndim == 3:
         P, C, T = a.shape
         return "weight", a.reshape(P * C, 1, T, 1, 1)
@@ -94,22 +94,25 @@ def convert_subtree(tree: dict) -> Dict[str, torch.Tensor]:
 
 def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     """flax param tree (nested dicts of numpy arrays, with or without the
-    top-level "params" key) -> AudioDrivenAvatar state_dict (fp32)."""
+    top-level "params" key) of an AudioDrivenAvatar or a
+    TriplaneGaussianAvatar -> the port's state_dict of the same model (fp32).
+    A tree that holds only some subtrees (e.g. a serving rollout's) maps to
+    the matching part of the model."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    decoder = PREFIXES[1][0]
+    stage2 = "triplane_gaussian" in tree or "audio_triplane" in tree
+    roots = STAGE2_ROOTS if stage2 else STAGE1_ROOTS
+    refiner = ("triplane_gaussian.renderer.point_refiner" if stage2
+               else "renderer.point_refiner")
     out: Dict[str, torch.Tensor] = {}
     for path, a in _leaves(tree):
-        if path[:len(decoder)] != decoder and \
-                any(path[:len(s)] == s for s in STAGE1_SUBTREES):
-            continue
-        for fprefix, tprefix in PREFIXES:
-            if path[:len(fprefix)] == fprefix:
-                key, val = _entry(tprefix, path[len(fprefix):], a)
-                out[key] = val
-                break
-        else:
+        if path[0] not in roots:
             raise KeyError(f"params_from_flax: unknown subtree {'/'.join(path)}")
+        if path[0] == "point_refiner":
+            key, val = _entry(refiner, path[1:], a)
+        else:
+            key, val = _entry("", path, a)
+        out[key] = val
     return out
 
 

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compiles the three CUDA kernels from audio_motion_avatar_tpu_torch/csrc
+  1. build   — compiles the four CUDA kernels from audio_motion_avatar_tpu_torch/csrc
                (one nvcc per source, in parallel) into build/kernels/;
   2. kernels — calls each kernel's wrapper at the serving path's shapes and
                holds it against its plain PyTorch version on the same inputs:
@@ -15,6 +15,12 @@ Phases (any failure exits non-zero):
                plain version: every |diff| <= 2^-7 |ref| + 2^-4 RMS(ref),
                a rule that must also reject a version dropping the ragged
                last key block (or, masked, ignoring the mask);
+               K1 (tile splat, 1 + 8 views at 1024^2, 30k gaussians, K = 512):
+               max|diff| <= 1e-5;
+               A at the stage-1 shapes (the ViT's 24 x 4096^2 self-attention,
+               the SMPL-X predictor's 80 queries and the fusion's 3152, each
+               over themselves and across to the 4096 image tokens): the same
+               rule;
                times each with CUDA events beside its plain version, its
                bound and (A) scaled_dot_product_attention as a yardstick;
   3. small   — a tiny fp32 rollout on the card against the same rollout on
@@ -32,9 +38,25 @@ Phases (any failure exits non-zero):
   5. profile — one more request: each stage's time (audio rollout, SMPL-X
                decoder, renderer), then the whole request under
                torch.profiler: the device's busy share and the 15 kernels
-               that take the most device time.
+               that take the most device time;
+  6. small stage 1 — a tiny reconstruction (reference view + 3 novel views)
+               on the card against the CPU: fp32 with the tiny heads (K1), the
+               image tokens of the CPU's ViT fed to both (the ViT runs in bf16
+               whatever the config says, and rounds differently on the two):
+               frames mean|diff| <= 1e-3; then bf16 with 64-wide predictor and
+               fusion heads (kernel A) held to 3x the CPU's own bf16-vs-fp32
+               distance;
+  7. reconstruct — the full-width bf16 stage-1 reconstruction (AvatarConfig()
+               defaults: Sapiens-1B geometry, 1024^2, dense upsampler, tile
+               splat; seeded weights), B = 1, one reference view and 8 novel
+               views: one warm-up and 3 timed requests; ms per request, stage
+               times, peak memory, launches of K1 and A against the count the
+               config implies, finite and non-blank frames;
+  8. serve from a reference — the serving model with its stage-1 stack: the
+               tokens of 2 streams' 2 reference frames (the stage-1 pass, render
+               off), then one rollout request from them; frames checked as in 4.
 Then one {"kernels": [...]} line, the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}. Takes about a minute on one
+the last line {"ok": true, "device": {...}}. Takes a few minutes on one
 H100, the kernels' build included.
 """
 
@@ -223,6 +245,105 @@ def check_attention(dev):
             "bound_ms": bound_ms, "bound_by": by,
             "library_ms": time_ms(lambda: Fn.scaled_dot_product_attention(q, k, v), 10),
             "shape": f"({B}, {H}, {S}, {D}) bf16"}
+
+
+def check_attention_stage1(dev):
+    """Kernel A at the stage-1 shapes under the same rule as the serving
+    shapes; returns {shape name: ms} of the kernel."""
+    import torch
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+
+    cfg = AvatarConfig()
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    S_img = (cfg.sapiens_resolution // cfg.vit_patch) ** 2
+    L = cfg.smpl_token_len
+    S_fus = 3 * cfg.triplane_resolution ** 2 + L
+    Hv, Hp, Hf = cfg.vit_heads, cfg.smplx_transformer_num_heads, cfg.cross_transformer_num_heads
+    cases = [("vit self", Hv, S_img, S_img), ("predictor self", Hp, L, L),
+             ("predictor cross", Hp, L, S_img), ("fusion self", Hf, S_fus, S_fus),
+             ("fusion cross", Hf, S_fus, S_img)]
+    times = {}
+    for name, H, Sq, Skv in cases:
+        q, k, v = rnd(1, H, Sq, 64), rnd(1, H, Skv, 64), rnd(1, H, Skv, 64)
+        out = at.attention(q, k, v, 0.125)
+        ref = at.attention_plain(q.float(), k.float(), v.float(), 0.125)
+        torch.cuda.synchronize()
+        excess = at.excess_error(out, ref)
+        times[name] = time_ms(lambda: at.attention(q, k, v, 0.125), 10)
+        fl = 4.0 * H * Sq * Skv * 64
+        print(f"[kernels] A attention stage-1 {name}: q (1, {H}, {Sq}, 64) kv "
+              f"(1, {H}, {Skv}, 64) excess {excess:.3f} (tol 1), "
+              f"{times[name]:.4f} ms ({fl / times[name] / 1e9:.1f} TFLOP/s)", flush=True)
+        if not excess <= 1.0:
+            raise AssertionError(f"kernel A disagrees at the stage-1 shape {name}: "
+                                 f"excess {excess}")
+    return times
+
+
+def check_tiles(dev):
+    """K1 at the reconstruction's shapes: 30k body-like gaussians seen by 1
+    reference and 8 novel orbiting views at 1024^2, binned and packed per
+    view (K = max_per_tile = 512, window 4 for the reference and 8 for the
+    novel views, as the renderer and render_multi_view bin them), all views
+    in one launch."""
+    import numpy as np
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops.cameras import make_camera, orbit_cameras
+    from audio_motion_avatar_tpu_torch.ops.splat import (
+        Projected, activate_opacity, activate_scales, bin_gaussians_sorted,
+        project_gaussians)
+
+    N, W, H, F, K = 30000, 1024, 1024, 9, 512
+    rng = np.random.RandomState(0)
+    xyz = (rng.randn(N, 3) * np.array([0.25, 0.6, 0.15])).astype(np.float32)
+    rot = rng.randn(N, 4).astype(np.float32)
+    rot[:, 0] += 3.0
+    raw_s = rng.randn(N, 3).astype(np.float32) * 0.3 - 1.0
+    raw_o = rng.randn(N).astype(np.float32)
+    col = rng.rand(N, 3).astype(np.float32)
+    cams = orbit_cameras(1, F, (H, W))
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    cam = make_camera(t(cams["intrinsic"][0]), t(cams["extrinsic"][0]), W, H)
+    proj = project_gaussians(
+        t(xyz).expand(F, N, 3), t(rot).expand(F, N, 4),
+        activate_scales(t(raw_s)).expand(F, N, 3),
+        activate_opacity(t(raw_o)).expand(F, N), t(col).expand(F, N, 3), cam)
+    views = [Projected(*(a[f] for a in proj)) for f in range(F)]
+    windows = [4] + [8] * (F - 1)
+    packed = torch.cat([st.pack_tile_params(v, W, H, K, w) for v, w in zip(views, windows)])
+    valid = sum(int(bin_gaussians_sorted(v, W, H, K, max_window=w)[2].sum())
+                for v, w in zip(views, windows))
+    tx, T = W // 16, (W // 16) * (H // 16)
+    out_k = st.composite_tiles(packed, tx, T)
+    out_p = st.composite_tiles_plain(packed, tx, T)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    padded = packed.shape[0] * K
+    print(f"[kernels] K1 splat_tiles: {F} views x {T} tiles, K={K}, {N} gaussians: "
+          f"valid (tile, slot) entries {valid} of {padded} padded; "
+          f"max|diff|={err:.3e} (tol 1e-5); non-white share "
+          f"{float((out_k < 0.999).float().mean()):.4f}", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"kernel K1 disagrees with its plain version: {err}")
+    nbytes = packed.numel() * 4 + out_k.numel() * 4
+    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * valid * st.P, PEAK_FP32_FLOPS, nbytes)
+    padded_ms, _ = bound(SPLAT_OPS_PER_PAIR * padded * st.P, PEAK_FP32_FLOPS, nbytes)
+    ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
+    print(f"[kernels] K1 splat_tiles: {ms:.4f} ms for {F} views, bound {bound_ms:.4f} ms "
+          f"({by}; {padded_ms:.4f} ms if every padded slot counted)", flush=True)
+    return {"name": "splat_tiles", "err": err, "ms": ms,
+            "plain_ms": time_ms(lambda: st.composite_tiles_plain(packed, tx, T), 1),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "shape": f"({F * T}, 9, {K}) fp32, {valid} valid entries"}
 
 
 def tame_seeded_weights(model):
@@ -419,6 +540,226 @@ def profile_rollout(roll, tri, smpl, req):
         print(f"[profile]   {us / 1e3:9.3f} ms {count:5d}x  {name[:110]}", flush=True)
 
 
+def frames_ok(frames, name):
+    """Finite frames, every one with some structure and not all white."""
+    import torch
+    n = frames.shape[0] * frames.shape[1]
+    if not torch.isfinite(frames).all():
+        raise AssertionError(f"{name}: non-finite frames")
+    std = frames.float().reshape(n, -1).std(dim=1)
+    white = float((frames > 0.999).float().mean())
+    print(f"[{name}] frames {tuple(frames.shape)}: per-frame std min "
+          f"{float(std.min()):.4f} max {float(std.max()):.4f}, white share {white:.4f}",
+          flush=True)
+    if not (std > 0.01).all() or white >= 1.0:
+        raise AssertionError(f"{name}: blank frames (std {std.tolist()})")
+
+
+def visible_heads(model, scale_bias=1.0, opacity_bias=2.0):
+    """Seeded heads draw gaussians of exp(-1 - 3.9) = 0.007 world units at
+    opacity 0.1, under a pixel at 64^2, and perturbed position, scale and
+    opacity heads throw them off the body or fade them out. Uniform, larger,
+    more opaque gaussians on the body, coloured by the (perturbed) colour
+    head, make the tiny frames worth comparing."""
+    import torch
+    r = model.renderer
+    with torch.no_grad():
+        r.scaling_layer.bias.fill_(scale_bias)
+        r.opacity_layer.bias.fill_(opacity_bias)
+        for layer in (r.xyz_layer, r.scaling_layer, r.opacity_layer):
+            layer.weight.zero_()
+
+
+def check_small_stage1(dev):
+    """Tiny reconstructions on the card vs the CPU (plain versions)."""
+    import dataclasses
+
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+    from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    body = smplx_ops.synthetic_model(seed=0, num_verts=300)
+    ref_np, test_np = make_batch(1, 1, (64, 64), seed=0), make_batch(1, 3, (64, 64), seed=1)
+
+    def run(cfg, d, dtype=None, image_tokens=None):
+        rec = build_reconstructor(cfg, device=d, dtype=dtype, smplx_model=body, seed=0)
+        perturb_heads(rec.model, seed=1, std=0.05)
+        visible_heads(rec.model)
+        if image_tokens is not None:
+            flat = image_tokens.to(d).reshape((-1,) + image_tokens.shape[2:])
+            rec.model.sapiens_encoder.forward = lambda images: flat
+        out = rec(to_device(ref_np, d), to_device(test_np, d))
+        return [x.float().cpu() for x in (out.reference, out.novel, out.output.image_tokens,
+                                          out.output.triplane_tokens)]
+
+    def dist(a, b):    # frames mean|diff| (reference and novel), tokens max|diff|
+        return (float(torch.cat([(a[i] - b[i]).abs().flatten() for i in (0, 1)]).mean()),
+                float((a[3] - b[3]).abs().max()))
+
+    cfg = AvatarConfig.tiny(image_size=(64, 64))
+    cpu = run(cfg, "cpu")
+    card = run(cfg, dev, image_tokens=cpu[2])
+    frames_diff, tok_diff = dist(card, cpu)
+    print(f"[small stage 1] tiny fp32 reconstruction card vs CPU (the CPU's image "
+          f"tokens on both): frames mean|diff|={frames_diff:.3e} (tol 1e-3), "
+          f"triplane tokens max|diff|={tok_diff:.3e}", flush=True)
+    if not (frames_diff <= 1e-3 and torch.isfinite(card[0]).all()):
+        raise AssertionError("tiny reconstruction on the card disagrees with the CPU")
+
+    cfg = dataclasses.replace(cfg, smplx_transformer_head_dim=at.KERNEL_HEAD_DIM,
+                              cross_transformer_head_dim=at.KERNEL_HEAD_DIM)
+    at.attention.launches = 0
+    card = run(cfg, dev, torch.bfloat16)
+    launches = at.attention.launches
+    cpu_bf16, cpu_fp32 = run(cfg, "cpu", torch.bfloat16), run(cfg, "cpu")
+    got, noise = dist(card, cpu_bf16), dist(cpu_bf16, cpu_fp32)
+    want = 2 * (cfg.smplx_transformer_layers + cfg.cross_transformer_layers)
+    print(f"[small stage 1] tiny bf16 reconstruction, 64-wide predictor and fusion "
+          f"heads: kernel A launches {launches} (expected {want}); card vs CPU bf16: "
+          f"frames mean|diff|={got[0]:.3e}, tokens max|diff|={got[1]:.3e}; CPU bf16 vs "
+          f"CPU fp32: {noise[0]:.3e}, {noise[1]:.3e} (tol 3x these)", flush=True)
+    if launches != want:
+        raise AssertionError(f"kernel A launches {launches} != {want}")
+    if not (got[0] <= 3 * noise[0] and got[1] <= 3 * noise[1] and noise[0] > 0
+            and torch.isfinite(card[0]).all()):
+        raise AssertionError("tiny bf16 reconstruction on the card disagrees with the CPU")
+    frames_ok(card[0], "small stage 1 reference")
+    frames_ok(card[1], "small stage 1 novel")
+
+
+def run_reconstruction(dev, requests=3):
+    """The full-width bf16 stage-1 reconstruction: B = 1, a 1024^2 reference
+    view and 8 novel views per request."""
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops.splat_tiles import render_multi_view
+    from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    cfg = AvatarConfig()
+    H, W = cfg.image_size
+    t0 = time.perf_counter()
+    rec = build_reconstructor(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    perturb_heads(rec.model, seed=1, std=1e-2)
+    visible_heads(rec.model, scale_bias=-1.0, opacity_bias=0.0)
+    n_params = sum(p.numel() for p in rec.model.parameters())
+    print(f"[reconstruct] built in {time.perf_counter() - t0:.1f} s, "
+          f"{n_params / 1e9:.3f} G parameters", flush=True)
+    ref = to_device(make_batch(1, 1, (H, W), seed=0), dev)
+    test = to_device(make_batch(1, 8, (H, W), seed=1), dev)
+    t0 = time.perf_counter()
+    rec(ref, test)
+    torch.cuda.synchronize()
+    print(f"[reconstruct] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
+          flush=True)
+
+    counters = (st.composite_tiles, at.attention)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rec(ref, test)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    # kernel A: the ViT's layers, the predictor's and the fusion's layers
+    # (self + cross each) and the PTv3 dec0 blocks, where their heads are
+    # 64 wide
+    stacks = ((cfg.image_feature_dim // cfg.vit_heads, cfg.vit_depth),
+              (cfg.smplx_transformer_head_dim, 2 * cfg.smplx_transformer_layers),
+              (cfg.cross_transformer_head_dim, 2 * cfg.cross_transformer_layers),
+              (cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0], cfg.ptv3_dec_depths[0]))
+    per_request = {
+        "composite_tiles": 2,      # the reference view, then all novel views
+        "attention": sum(n for d, n in stacks if d == at.KERNEL_HEAD_DIM)}
+    expected = {k: v * requests for k, v in per_request.items()}
+    print(f"[reconstruct] launches {launches} expected {expected}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    for name, fr in (("reconstruct reference", out.reference),
+                     ("reconstruct novel", out.novel)):
+        frames_ok(fr, name)
+    mean_s = sum(times) / len(times)
+    print(f"[reconstruct] requests {', '.join(f'{1e3 * s:.1f}' for s in times)} ms "
+          f"(mean {1e3 * mean_s:.1f} ms), peak memory {peak / 2**30:.2f} GiB; metrics "
+          f"{ {k: round(v, 5) for k, v in out.metrics.items()} }", flush=True)
+
+    # where one request's time goes, stage by stage
+    model, statics = rec.model, rec.statics
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    with torch.no_grad():
+        tokens, ms_vit = timed(lambda: model.sapiens_encoder(ref.video[:, 0]))
+        image_tokens = tokens[:, None]
+        feats, ms_feat = timed(lambda: model.image_feature(ref.video, image_tokens))
+        (planes, smpl_tokens, _), ms_enc = timed(lambda: model.smplx_triplane_encoder(
+            statics.smplx_model, image_tokens, ref.cam_parms, ref.smpl_parms,
+            feats.reshape((1,) + feats.shape[2:])))
+        (tri, _), ms_fus = timed(lambda: model.fusion_network(planes, image_tokens,
+                                                              smpl_tokens))
+        (_, gs), ms_ren = timed(lambda: model.renderer(statics, tri, ref.cam_parms,
+                                                       ref.smpl_parms))
+        gb = {k: v.reshape((1, -1) + v.shape[1:])[:, 0] for k, v in gs.items() if k != "shs"}
+        _, ms_nov = timed(lambda: render_multi_view(
+            gb, test.cam_parms["intrinsic"], test.cam_parms["extrinsic"], W, H,
+            max_per_tile=cfg.max_per_tile))
+    print(f"[reconstruct] stages: ViT {ms_vit:.1f} ms, image features {ms_feat:.1f} ms, "
+          f"triplane encoder {ms_enc:.1f} ms, fusion {ms_fus:.1f} ms, renderer "
+          f"{ms_ren:.1f} ms, 8 novel views {ms_nov:.1f} ms", flush=True)
+    return launches
+
+
+def serve_from_reference(dev):
+    """The serving model with its stage-1 stack: two streams' reference
+    frames -> initial tokens (render off) -> one rollout request."""
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
+    from audio_motion_avatar_tpu_torch.serve import build_rollout, serve, synthetic_inputs
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    cfg = serving_config(AvatarConfig(), image_size=(512, 512), upsampler_norm="affine")
+    t0 = time.perf_counter()
+    roll = build_rollout(cfg, device=dev, dtype=torch.bfloat16, seed=0, stage1=True)
+    perturb_heads(roll.model, seed=1, std=1e-2)
+    tame_seeded_weights(roll.model)
+    visible_heads(roll.model, scale_bias=-1.0, opacity_bias=0.0)
+    print(f"[serve from reference] built in {time.perf_counter() - t0:.1f} s", flush=True)
+    ref = to_device(make_batch(2, cfg.triplane_input_frames, cfg.image_size, seed=2), dev)
+    _, _, audio, cams = synthetic_inputs(roll.model.cfg, 2, dev, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tri, smpl = roll.tokens(ref.video, ref.smpl_parms, ref.cam_parms)
+    torch.cuda.synchronize()
+    ms_tokens = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rendered, _ = next(serve(roll, tri, smpl, [(audio, cams)]))
+    torch.cuda.synchronize()
+    ms_roll = 1e3 * (time.perf_counter() - t0)
+    print(f"[serve from reference] stage-1 tokens {tuple(tri.shape)} / "
+          f"{tuple(smpl.shape)} in {ms_tokens:.1f} ms (first call), token std "
+          f"{float(tri.float().std()):.4f}; rollout request {ms_roll:.1f} ms (first call)",
+          flush=True)
+    frames_ok(rendered, "serve from reference")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -439,20 +780,31 @@ def main():
     print(f"[build] {len(secs)} kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})", flush=True)
 
-    checks = [check_splat(dev), check_quad(dev), check_attention(dev)]
+    checks = [check_splat(dev), check_quad(dev), check_attention(dev), check_tiles(dev)]
+    check_attention_stage1(dev)
     check_small(dev)
     launches, state = run_rollout(dev)
     profile_rollout(*state)
+    del state
+    check_small_stage1(dev)
+    launches.update(run_reconstruction(dev))
+    serve_from_reference(dev)
 
+    # launches: S and Q from the serving rollout (phase 4), K1 and A from
+    # the reconstruction (phase 7); each path's counts are printed above
     sources = {"splat_segments": ("composite_segments", "splat_segments.cu",
                                   "audio_motion_avatar_tpu/ops/splat_pallas.py:503"),
                "quad_rows": ("quad_rows", "quad_rows.cu",
                              "audio_motion_avatar_tpu/ops/triplane.py:506"),
                "attention": ("attention", "attention.cu",
-                             "audio_motion_avatar_tpu/models/transformer.py:261")}
+                             "audio_motion_avatar_tpu/models/transformer.py:261"),
+               "splat_tiles": ("composite_tiles", "splat_tiles.cu",
+                               "audio_motion_avatar_tpu/ops/splat_pallas.py:113")}
     line = []
     for c in checks:
         counter, src, replaces = sources[c["name"]]
+        if launches[counter] <= 0:
+            raise AssertionError(f"kernel {c['name']} was not launched on its path")
         line.append({"name": c["name"], "route": "cuda",
                      "source": f"audio_motion_avatar_tpu_torch/csrc/{src}",
                      "replaces": replaces, "launches": launches[counter],

@@ -1,4 +1,4 @@
-"""The port's three CUDA kernels against their plain PyTorch versions, on
+"""The port's four CUDA kernels against their plain PyTorch versions, on
 the card, at small and ragged shapes (chip_smoke.py holds them at the
 serving shapes). Every test needs a CUDA card and nvcc, and skips without
 one. This file imports no JAX, so on a machine without it run it without
@@ -6,11 +6,13 @@ the JAX test harness's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 
-Tolerances: S 1e-5 absolute (the kernel is built with --fmad=false and
-blends in the plain version's order); Q bit-exact (a copy); A's bf16
+Tolerances: S and K1 1e-5 absolute (the kernels are built with
+--fmad=false and blend in the plain versions' order); Q bit-exact (a copy); A's bf16
 outputs against the plain version in fp32 on the same bf16 inputs: every
 |diff| <= 2^-7 |ref| + 2^-4 RMS(ref) (ops/attention.excess_error).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from audio_motion_avatar_tpu_torch.ops import attention as at
 from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
 from audio_motion_avatar_tpu_torch.ops import triplane as tp
 from audio_motion_avatar_tpu_torch.ops.cameras import make_camera
 from audio_motion_avatar_tpu_torch.ops.splat import (activate_opacity,
@@ -60,6 +63,45 @@ def test_splat_kernel_matches_plain(cuda, large_cap, K):
     assert ss.composite_segments.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5
     assert bool((counts == 0).any()) and 0 < int(counts.max()) <= K
+
+
+@pytest.mark.parametrize("K,window", [(512, 4), (24, 8), (200, 4)])
+def test_tile_kernel_matches_plain(cuda, K, window):
+    """3 views at 128x96 in one launch (tile origins from tile % tiles per
+    frame), 400 gaussians: empty and clamped tiles, K above and below the
+    128-slot chunk."""
+    F, N, W, H = 3, 400, 128, 96
+    rng = np.random.RandomState(1)
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.randn(*shape) * s).astype(np.float32), device=cuda)
+
+    Km = torch.tensor([[70.0, 0, W / 2], [0, 70.0, H / 2], [0, 0, 1]], device=cuda)
+    E = torch.eye(4, device=cuda).repeat(F, 1, 1)
+    E[:, 2, 3] = torch.tensor([2.0, 2.5, 3.0], device=cuda)
+    gs = [r(F, N, 3, s=0.4), r(F, N, 4), r(F, N, 3, s=0.3) - 2, r(F, N, s=2.0),
+          torch.rand(F, N, 3, device=cuda)]
+    from audio_motion_avatar_tpu_torch.ops.cameras import make_camera
+    proj = project_gaussians(gs[0], gs[1], activate_scales(gs[2]), activate_opacity(gs[3]),
+                             gs[4], make_camera(Km.expand(F, 3, 3), E, W, H))
+    packed = torch.cat([st.pack_tile_params(
+        type(proj)(*(a[f] for a in proj)), W, H, K, window) for f in range(F)])
+    tx, T = W // 16, (W // 16) * (H // 16)
+    before = st.composite_tiles.launches
+    got = st.composite_tiles(packed, tx, T)
+    want = st.composite_tiles_plain(packed, tx, T)
+    torch.cuda.synchronize()
+    assert st.composite_tiles.launches == before + 1
+    assert got.shape == (F * T, 256, 3)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert bool((want < 0.999).any()) and bool((want > 0.999).any())
+
+
+def test_tile_wrapper_validates(cuda):
+    with pytest.raises(ValueError, match="float32"):
+        st.composite_tiles(torch.zeros(2, 9, 4, dtype=torch.float16, device=cuda), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.composite_tiles(torch.zeros(2, 4, 9, device=cuda).transpose(1, 2), 2)
 
 
 @pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 24), (torch.float32, 4)])
@@ -114,8 +156,6 @@ def test_attention_wrapper_validates(cuda):
 def test_fp32_rollout_with_kernel_heads_raises(cuda):
     """Kernel A takes bf16 operands: an fp32 configuration with 64-wide
     heads is refused on the card, not run in bf16 behind the caller's back."""
-    import dataclasses
-
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
     from audio_motion_avatar_tpu_torch.serve import build_rollout
 
@@ -123,3 +163,16 @@ def test_fp32_rollout_with_kernel_heads_raises(cuda):
                                              audio_transformer_head_dim=64))
     with pytest.raises(ValueError, match="bf16"):
         build_rollout(cfg, device=cuda)
+
+
+def test_fp32_reconstruction_with_kernel_heads_raises(cuda):
+    """The same refusal for the stage-1 entry point: 64-wide predictor and
+    fusion heads in an fp32 configuration."""
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+    from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
+
+    cfg = dataclasses.replace(AvatarConfig.tiny(), smplx_transformer_head_dim=64)
+    with pytest.raises(ValueError, match="bf16"):
+        build_reconstructor(cfg, device=cuda,
+                            smplx_model=smplx_ops.synthetic_model(seed=0, num_verts=300))

@@ -18,6 +18,8 @@ Tolerances: tokens and SMPL-X params 1e-4 (fp32, reassociated matmuls);
 frames mean |diff| <= 1e-3 and PSNR >= 50 dB.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -170,10 +172,29 @@ def test_serving_profile_matches_jax():
                                         ("splat_segmented", False),
                                         ("upsampler_upconv", "poly")])
 def test_renderer_rejects_non_serving_knobs(knob, value):
+    """On the serving form (sparse final upsample level), turning the quad
+    sampler off asks for the JAX package's 4-tap sparse sampler, which the
+    port does not implement, and raises. The tile splat (K1) and the poly
+    up-convolution belong to the default form, which the port renders: the
+    model builds and selects them."""
     from audio_motion_avatar_tpu_torch.models.audio_avatar import AudioDrivenAvatar
     cfg = serving_config(AvatarConfig.tiny(image_size=(32, 32)), **{knob: value})
+    if knob == "sample_quad":
+        with pytest.raises(NotImplementedError, match=knob):
+            AudioDrivenAvatar(cfg)
+        return
+    assert getattr(AudioDrivenAvatar(cfg).renderer.cfg, knob) == value
+
+
+@pytest.mark.parametrize("knob,value", [("rgb", False), ("upsampler_conv", "winograd"),
+                                        ("upsample_triplane", False)])
+def test_renderer_rejects_unported_knobs(knob, value):
+    """SH colours (ops/sh.py), the Winograd convs and the planes without the
+    upsampler are not ported: they raise rather than run something else."""
+    from audio_motion_avatar_tpu_torch.models.audio_avatar import AudioDrivenAvatar
     with pytest.raises(NotImplementedError, match=knob):
-        AudioDrivenAvatar(cfg)
+        AudioDrivenAvatar(dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)),
+                                              **{knob: value}))
 
 
 def test_serve_loop_slides_window(runs):
@@ -184,3 +205,69 @@ def test_serve_loop_slides_window(runs):
     for (rendered, pred), ref in zip(served, torch_out):
         np.testing.assert_array_equal(rendered.numpy(), ref[0])
         np.testing.assert_array_equal(pred["transl"].numpy(), ref[3]["transl"])
+
+
+def test_serving_rollout_from_reference_frames_matches_jax():
+    """main2's demo start: the stage-1 token pass (serving profile, render
+    off) on two streams' reference frames, then one rollout chunk from those
+    tokens, in the JAX package and through the port's
+    `build_rollout(stage1=True)`, `Rollout.tokens` and `serve`. The port's
+    ViT returns the JAX image tokens (see the module docstring)."""
+    from audio_motion_avatar_tpu.models.renderer import build_renderer_statics as jstatics
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch as tmake_batch, to_device
+    from test_torch_reconstruct import _frames_close, _same_image_tokens
+
+    over = dict(num_upsample_blocks=2, max_per_tile=512, upsampler_sparse_max_tiles=3,
+                upsampler_norm="affine", compute_dtype="float32", frames_per_chunk=6)
+    jbody = jax_smplx.synthetic_model(seed=0, num_verts=300)
+    cfg, model, chunk = jax_serving_avatar(jbody, **over)
+    statics = jstatics(jbody, subdivide_steps=cfg.subdivide_steps,
+                       densify=cfg.densify_smplx_verts)
+    ref = make_batch(2, cfg.triplane_input_frames, cfg.image_size, seed=50)
+    tgt = make_batch(2, cfg.triplane_output_frames, cfg.image_size, seed=51,
+                      with_audio=True, audio_dim=cfg.audio_feature_dim)
+    jref = jax.tree_util.tree_map(jnp.asarray, ref)
+    jtgt = jax.tree_util.tree_map(jnp.asarray, tgt)
+
+    def demo(m, v, sp, c, aud, cams):
+        out = m.triplane_gaussian(statics, v, sp, c, render=False)
+        tokens = m.triplane_gaussian.sapiens_encoder(v.reshape((-1,) + v.shape[2:]))
+        return (out.triplane_tokens, out.smpl_tokens, tokens,
+                chunk(m, out.triplane_tokens, out.smpl_tokens, aud, cams))
+
+    args = (jref.video, jref.smpl_parms, jref.cam_parms, jtgt.audio_features, jtgt.cam_parms)
+    params = random_params(model, 52, *args, method=demo)
+    params = _perturb_serving(params)
+    tri, smpl, image_tokens, (frames, _, _, _) = jax.tree_util.tree_map(
+        np.asarray, model.apply({"params": params}, *args, method=demo))
+
+    pcfg = serving_config(AvatarConfig.tiny(image_size=(32, 32)), **over)
+    roll = build_rollout(pcfg, device="cpu", stage1=True,
+                         smplx_model=torch_smplx.synthetic_model(seed=0, num_verts=300),
+                         state_dict=params_from_flax(params))
+    _same_image_tokens(roll.model.triplane_gaussian,
+                       image_tokens.reshape(ref.video.shape[:2] + image_tokens.shape[1:]))
+    r, g = to_device(tmake_batch(2, 2, (32, 32), seed=50), "cpu"), tgt
+    ptri, psmpl = roll.tokens(r.video, r.smpl_parms, r.cam_parms)
+    np.testing.assert_allclose(ptri.numpy(), tri, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(psmpl.numpy(), smpl, atol=1e-4, rtol=0)
+    rendered, _ = next(serve(roll, ptri, psmpl, [(torch.as_tensor(g.audio_features),
+                                                 {k: torch.as_tensor(v) for k, v in
+                                                  g.cam_parms.items()})]))
+    _frames_close(rendered.numpy(), frames)
+
+
+def _perturb_serving(params):
+    """Visible, upright gaussians from seeded weights (as test_torch_rollout)."""
+    r = params["triplane_gaussian"]["renderer"]
+    r["scaling_layer"]["bias"] = np.full(3, 1.5, np.float32)
+    r["opacity_layer"]["bias"] = np.full(1, 2.0, np.float32)
+    r["xyz_layer"]["kernel"] = r["xyz_layer"]["kernel"] * 0.01
+    r["refine_mlp"]["layers_4"]["kernel"] *= 0.01
+    dec = params["triplane_gaussian"]["smplx_triplane_encoder"]["smpl_decoder"]
+    dec["transl"]["kernel"] *= 0.01
+    dec["transl"]["bias"] *= 0.0
+    dec["body_root_pose"]["kernel"] *= 0.01
+    dec["body_root_pose"]["bias"] = np.array([1, 0, 0, 0, 1, 0], np.float32)
+    params["audio_triplane"]["transformer"]["proj_out"]["kernel"] *= 0.1
+    return params
