@@ -18,6 +18,13 @@
 // large-negative mask does. Validated shapes only: D = 64, bf16,
 // contiguous (B, H, S, D); any Sq / Skv (the ragged edge is masked).
 //
+// For training, the launch can also write each query row's softmax
+// statistics (m, l): the running maximum of the base-2 logits and the sum of
+// exp2(logit - m), kept apart rather than folded into one log-sum-exp,
+// because in fp32 a masked row's -1e30 + log2(l) rounds back to -1e30.
+// attention_bwd.cu recomputes the probabilities from them. Writing them
+// changes nothing in the output.
+//
 // Bound on the H100: operations, 4 B H Sq Skv D FLOP on the bf16 tensor
 // cores (~0.165 ms at 989 TFLOP/s for the audio self-attention,
 // B=2 H=8 S=6304). This first version uses mma.sync-class WMMA tiles and a
@@ -58,8 +65,8 @@ static_assert(D == BK, "the P tile reuses the Q tile's rows");
 __global__ void __launch_bounds__(NTHREAD) attn_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-    __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
-    float scale_log2) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int H,
+    int Sq, int Skv, float scale_log2) {
   __shared__ Smem sm;
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -184,6 +191,10 @@ __global__ void __launch_bounds__(NTHREAD) attn_fwd_kernel(
   // in the shuffles; only rows inside Sq are stored.
   const int row = q0 + warp * 16 + r;
   const float inv = 1.f / l;
+  if (stats != nullptr && row < Sq && half == 0) {
+    stats[((size_t)bh * Sq + row) * 2] = m;
+    stats[((size_t)bh * Sq + row) * 2 + 1] = l;
+  }
   __nv_bfloat16* orow = out + ((size_t)bh * Sq + row) * D;
 #pragma unroll
   for (int j = 0; j < 32; j += 2) {
@@ -205,17 +216,19 @@ __global__ void __launch_bounds__(NTHREAD) attn_fwd_kernel(
 }  // namespace
 
 // q (B, H, Sq, 64), k / v (B, H, Skv, 64) bf16 contiguous; kv_mask (B, Skv)
-// bool or null -> out (B, H, Sq, 64) bf16. Returns cudaGetLastError().
+// bool or null -> out (B, H, Sq, 64) bf16; stats (B, H, Sq, 2) fp32 (m, l)
+// or null. Returns cudaGetLastError().
 extern "C" int attention_launch(const void* q, const void* k, const void* v,
-                                const void* kv_mask, void* out, int B, int H,
-                                int Sq, int Skv, float scale, void* stream) {
+                                const void* kv_mask, void* out, void* stats,
+                                int B, int H, int Sq, int Skv, float scale,
+                                void* stream) {
   if (B > 0 && H > 0 && Sq > 0 && Skv > 0) {
     dim3 grid((Sq + BQ - 1) / BQ, B * H);
     const float scale_log2 = scale * 1.4426950408889634f;
     attn_fwd_kernel<<<grid, NTHREAD, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const uint8_t*)kv_mask,
-        (__nv_bfloat16*)out, H, Sq, Skv, scale_log2);
+        (__nv_bfloat16*)out, (float*)stats, H, Sq, Skv, scale_log2);
   }
   return (int)cudaGetLastError();
 }

@@ -40,10 +40,17 @@ KERNELS = {
     "attention": (
         "attention.cu", (),
         {"attention_launch": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I)}),
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I)}),
     "splat_tiles": (
         "splat_tiles.cu", ("--fmad=false",),
         {"splat_tiles_launch": ([_P, _I, _I, _I, _I, _P, _P], _I)}),
+    "attention_bwd": (
+        "attention_bwd.cu", (),
+        {"attention_bwd_launch": (
+            [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _P], _I)}),
+    "splat_tiles_bwd": (
+        "splat_tiles_bwd.cu", ("--fmad=false",),
+        {"splat_tiles_bwd_launch": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,11 @@ the frames.
 Built with `num_verts_encoder=None`, the model holds only what a rollout
 from given tokens reads (no image encoder, triplane encoder body or fusion
 network).
+
+In the full forward (the training path) the stage-1 reconstruction runs
+without autograd (the JAX package's stop_gradient on its tokens, the
+reference's no_grad), and the prediction-cache curriculum may swap its
+tokens for cached predictions: flag * cached + (1 - flag) * fresh.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ class AudioDrivenAvatar(nn.Module):
             heads=cfg.audio_transformer_num_heads,
             audio_feature_dim=cfg.audio_feature_dim,
             compute_dtype=_compute_dtype(cfg.compute_dtype),
-            gelu_approx=cfg.gelu_approx)
+            gelu_approx=cfg.gelu_approx, remat=cfg.audio_transformer_remat)
 
     @property
     def smpl_decoder(self) -> SMPLXDecoder:
@@ -95,13 +100,22 @@ class AudioDrivenAvatar(nn.Module):
     def forward(self, statics: RendererStatics, ref_images: torch.Tensor,
                 ref_smpl_params: Optional[dict], ref_cam_params: dict,
                 audio_features: torch.Tensor, target_cam_params: dict,
+                cached_triplanes: Optional[torch.Tensor] = None,
+                cached_smpl_tokens: Optional[torch.Tensor] = None,
+                use_cache: Optional[torch.Tensor] = None,
                 render_ref: bool = False) -> AudioAvatarOutput:
-        """The JAX package's AudioDrivenAvatar.__call__ without the training
-        cache swap: stage-1 reconstruction of the reference frames, one
-        audio rollout from its tokens, the targets rendered."""
-        out1 = self.triplane_gaussian(statics, ref_images, ref_smpl_params,
-                                      ref_cam_params, render=render_ref)
+        """The JAX package's AudioDrivenAvatar.__call__: stage-1
+        reconstruction of the reference frames (no gradient), the cache
+        swap where cached tokens are given (use_cache (B,) 0 / 1 flags), one
+        audio rollout from the tokens, the targets rendered."""
+        with torch.no_grad():
+            out1 = self.triplane_gaussian(statics, ref_images, ref_smpl_params,
+                                          ref_cam_params, render=render_ref)
         tri, smpl = out1.triplane_tokens, out1.smpl_tokens
+        if cached_triplanes is not None:
+            flag = use_cache.to(tri.dtype).reshape(-1, 1, 1, 1)
+            tri = flag * cached_triplanes + (1 - flag) * tri
+            smpl = flag * cached_smpl_tokens + (1 - flag) * smpl
         out_tri, out_smpl = self.audio_triplane(audio_features, tri, smpl)
         rendered, pred, gaussians = self._decode_and_render(
             statics, out_tri, out_smpl, target_cam_params)

@@ -6,10 +6,14 @@ reference YAML tree. `tiny()` is the scaled-down test profile and
 its inference entry points (its configs/build.py SERVING_PROFILE and
 SERVING_PROFILE_MODEL, copied here so the port imports nothing of it).
 
-The JAX package's execution knobs (scan unroll and remat, the attention,
-splat and quad-row implementation selectors, slab sampling, the sparse
-penultimate level) have no counterpart in the port and are left out, so
-none can be set and then ignored. Of the render-path knobs, the renderer
+Of the JAX package's execution knobs only the two remat switches are kept
+(`frames_scan_remat`, `audio_transformer_remat`, both on by default as
+there): under autograd the port checkpoints each renderer frame chunk and
+each audio transformer block (torch.utils.checkpoint), and forward-only
+calls ignore them. The others (scan unroll, the attention, splat and
+quad-row implementation selectors, slab sampling, the sparse penultimate
+level) have no counterpart in the port and are left out, so none can be
+set and then ignored. Of the render-path knobs, the renderer
 takes the serving values only and raises on others. The stage-1 fields
 (sapiens_encoder, the triplane encoder's transformers) describe the model
 the weights come from and are read by the stage-1 slice.
@@ -89,6 +93,10 @@ class AvatarConfig:
     # upsampler stacks (params stay fp32; geometry + splatting stay fp32)
     compute_dtype: str = "float32"
     frames_per_chunk: int = 1
+    # recompute in the backward instead of keeping activations (training
+    # only): each renderer frame chunk, each audio transformer block
+    frames_scan_remat: bool = True
+    audio_transformer_remat: bool = True
     # tanh-approximate GELU in the PTv3 refiner MLPs and the audio GEGLU
     gelu_approx: bool = False
 

@@ -124,7 +124,9 @@ class VisionTransformer(nn.Module):
 
 class SapiensEncoder(nn.Module):
     """Frozen patch-token encoder: (B, 3, H, W) in [0, 1] -> (B, S, width)
-    fp32. compute_dtype defaults to bf16, as the reference's autocast."""
+    fp32. compute_dtype defaults to bf16, as the reference's autocast. The
+    ViT runs without autograd and its tokens carry no gradient (the JAX
+    package's stop_gradient): training never reaches its parameters."""
 
     def __init__(self, width: int = 1536, depth: int = 40, heads: int = 24,
                  patch: int = 16, resolution: int = 1024,
@@ -135,7 +137,8 @@ class SapiensEncoder(nn.Module):
                                      dtype=compute_dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return self.vit(preprocess(images, self.resolution)).float()
+        with torch.no_grad():
+            return self.vit(preprocess(images, self.resolution)).float()
 
 
 class ImageFeature(nn.Module):

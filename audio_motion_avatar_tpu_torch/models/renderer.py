@@ -14,7 +14,10 @@ Two forms, as the JAX package's Renderer selects them:
 splat_segmented picks the splat: kernel S, or the binned tile composite
 K1 (ops/splat_tiles.py). Other knob values (the 4-tap sparse sampler,
 Winograd convs, SH colours) raise. The forward returns (frames, gaussians)
-as the JAX renderer does.
+as the JAX renderer does. Under autograd with cfg.frames_scan_remat (the
+JAX package's nn.remat of its frame scan), each frame chunk is recomputed in
+the backward (torch.utils.checkpoint) instead of keeping its upsampler,
+refiner and splat activations.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import smplx as smplx_ops
 from ..ops import subdivision
@@ -207,8 +211,15 @@ class Renderer(nn.Module):
         F = cfg.frames_per_chunk
         if F <= 0 or BT % F:
             F = 1
-        chunks = [self._render_frame(planes_lr[c:c + F], points[c:c + F],
-                                     transl[c:c + F], Ks[c:c + F], Es[c:c + F])
+        remat = cfg.frames_scan_remat and torch.is_grad_enabled()
+
+        def frame(*args):
+            if remat:
+                return checkpoint(self._render_frame, *args, use_reentrant=False)
+            return self._render_frame(*args)
+
+        chunks = [frame(planes_lr[c:c + F], points[c:c + F], transl[c:c + F],
+                        Ks[c:c + F], Es[c:c + F])
                   for c in range(0, BT, F)]
         gaussians = {k: torch.cat([g[k] for g, _ in chunks]) for k in chunks[0][0]}
         gaussians["shs"] = gaussians["color"]

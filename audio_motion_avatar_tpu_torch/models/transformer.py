@@ -6,7 +6,8 @@ Dtype semantics follow the JAX package: parameters stay fp32; with a
 compute dtype (bf16) every projection casts its input and weights to it;
 LayerNorm / GroupNorm statistics are taken in fp32. Norm epsilons are
 flax's 1e-6 (torch defaults to 1e-5). Self-attention with head width 64
-runs through kernel A (ops/attention.py), in bf16 on the card.
+runs through kernel A (ops/attention.py), in bf16 on the card, and under
+autograd through its Function (kernel A-bwd for the gradients).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import KERNEL_HEAD_DIM, attention, dense_attention
+from ..ops.attention import KERNEL_HEAD_DIM, attention_autograd, dense_attention
 
 
 def linear(x: torch.Tensor, layer: nn.Linear,
@@ -58,13 +60,14 @@ def merge_heads(y: torch.Tensor) -> torch.Tensor:
 def head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float,
                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, H, S, D) attention: kernel A where D is its width, the dense
-    chain in the operands' dtype otherwise. Kernel A takes bf16 operands
-    and raises on others: on the card a D = 64 head needs the bf16 compute
-    dtype, and no fp32 configuration is quietly run in bf16."""
+    """(B, H, S, D) attention: kernel A where D is its width (with kernel
+    A-bwd where a gradient flows), the dense chain in the operands' dtype
+    otherwise. Kernel A takes bf16 operands and raises on others: on the
+    card a D = 64 head needs the bf16 compute dtype, and no fp32
+    configuration is quietly run in bf16."""
     if q.shape[-1] != KERNEL_HEAD_DIM:
         return dense_attention(q, k, v, scale, kv_mask)
-    return attention(q, k, v, scale, kv_mask)
+    return attention_autograd(q, k, v, scale, kv_mask)
 
 
 class Attention(nn.Module):
@@ -154,16 +157,19 @@ class TransformerBlock(nn.Module):
 class Transformer1D(nn.Module):
     """(B, C, S) tokens: GroupNorm(32) over C, project to heads*head_dim, N
     blocks, project back, residual add. final_tail: the output covers only
-    the last final_tail positions (the last block computes just those)."""
+    the last final_tail positions (the last block computes just those).
+    remat: under autograd each block is recomputed in the backward
+    (torch.utils.checkpoint) instead of keeping its activations."""
 
     def __init__(self, num_layers: int, heads: int, head_dim: int,
                  in_channels: int, context_dim: Optional[int] = None,
                  norm_num_groups: int = 32,
                  dtype: Optional[torch.dtype] = None,
-                 final_tail: Optional[int] = None, gelu_approx: bool = False):
+                 final_tail: Optional[int] = None, gelu_approx: bool = False,
+                 remat: bool = False):
         super().__init__()
         inner = heads * head_dim
-        self.dtype, self.final_tail = dtype, final_tail
+        self.dtype, self.final_tail, self.remat = dtype, final_tail, remat
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.num_layers = num_layers
@@ -179,8 +185,11 @@ class Transformer1D(nn.Module):
         residual = tokens
         h = self.norm(tokens.float()).transpose(1, 2)             # (B, S, C)
         h = linear(h, self.proj_in, self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            h = getattr(self, f"block_{i}")(h, context)
+            block = getattr(self, f"block_{i}")
+            h = (checkpoint(block, h, context, use_reentrant=False) if remat
+                 else block(h, context))
         h = linear(h, self.proj_out, self.dtype)
         if self.final_tail is not None:
             residual = residual[:, :, -self.final_tail:]

@@ -174,30 +174,49 @@ def bin_gaussians_sorted(proj: Projected, width: int, height: int,
     return order, tile_idx, tile_mask
 
 
+def tile_pixels(n_tiles: int, tx: int, tiles_per_frame: int, device,
+                dtype=torch.float32):
+    """Pixel coordinates (px, py), each (T, 256), of every tile's pixels; a
+    tile's origin comes from tile % tiles_per_frame, as in the kernels."""
+    P = TILE * TILE
+    pix = torch.arange(P, device=device)
+    tid = torch.arange(n_tiles, device=device) % tiles_per_frame
+    px = (pix % TILE).to(dtype)[None, :] + ((tid % tx) * TILE).to(dtype)[:, None]
+    py = (pix // TILE).to(dtype)[None, :] + ((tid // tx) * TILE).to(dtype)[:, None]
+    return px, py
+
+
+def slot_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """The blend's alpha of one slot of every tile, operation for operation
+    as the kernels: g (9, T) params, px / py (T, 256) -> (dx, dy, power,
+    e = exp(min(power, 0)), op * e, alpha, keep)."""
+    dx = px - g[0][:, None]
+    dy = py - g[1][:, None]
+    power = (-0.5 * (g[2][:, None] * dx * dx + g[4][:, None] * dy * dy)
+             - g[3][:, None] * dx * dy)
+    e = torch.exp(torch.clamp(power, max=0.0))
+    araw = g[5][:, None] * e
+    alpha = torch.clamp(araw, max=ALPHA_MAX)
+    keep = ~((power > 0.0) | (alpha < ALPHA_MIN))
+    alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
+    return dx, dy, power, e, araw, alpha, keep
+
+
 def blend_tiles_plain(slot, n_slots: int, n_tiles: int, tx: int,
-                      tiles_per_frame: int, device) -> torch.Tensor:
+                      tiles_per_frame: int, device,
+                      dtype=torch.float32) -> torch.Tensor:
     """The plain version of the kernels' per-tile blend (S and K1): the
     same sequential front-to-back rule, operation for operation, vectorised
     over tiles and pixels, one gaussian slot per step. slot(j) -> (9, T)
     params [mx, my, cxx, cxy, cyy, op, r, g, b] of slot j of every tile
     (op 0 where a tile has no gaussian there) -> (T, 256, 3)."""
     P = TILE * TILE
-    pix = torch.arange(P, device=device)
-    tid = torch.arange(n_tiles, device=device) % tiles_per_frame
-    px = (pix % TILE).float()[None, :] + ((tid % tx) * TILE).float()[:, None]
-    py = (pix // TILE).float()[None, :] + ((tid // tx) * TILE).float()[:, None]
-    logT = torch.zeros(n_tiles, P, device=device)
-    acc = torch.zeros(3, n_tiles, P, device=device)
+    px, py = tile_pixels(n_tiles, tx, tiles_per_frame, device, dtype)
+    logT = torch.zeros(n_tiles, P, device=device, dtype=dtype)
+    acc = torch.zeros(3, n_tiles, P, device=device, dtype=dtype)
     for j in range(n_slots):
         g = slot(j)
-        dx = px - g[0][:, None]
-        dy = py - g[1][:, None]
-        power = (-0.5 * (g[2][:, None] * dx * dx + g[4][:, None] * dy * dy)
-                 - g[3][:, None] * dx * dy)
-        alpha = torch.clamp(g[5][:, None] * torch.exp(torch.clamp(power, max=0.0)),
-                            max=ALPHA_MAX)
-        alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN),
-                            torch.zeros_like(alpha), alpha)
+        alpha = slot_alpha(g, px, py)[5]
         logT_after = logT + torch.log1p(-alpha)
         w = alpha * torch.exp(logT)
         w = torch.where(torch.exp(logT_after) < T_EPS, torch.zeros_like(w), w)

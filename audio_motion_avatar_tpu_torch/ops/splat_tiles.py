@@ -14,6 +14,13 @@ tensors it runs `composite_tiles_plain`, the same sequential blend
 (splat.blend_tiles_plain). The JAX package's `_tile_origins` has no
 counterpart: both versions derive a tile's origin from its index, as the
 TPU kernel does.
+
+Training differentiates the composite through `CompositeTiles`, the
+counterpart of the JAX package's custom VJP (`_ct_fwd` / `_ct_bwd`): K1
+forward, K2 (csrc/splat_tiles_bwd.cu, `composite_tiles_bwd`) backward,
+saving only the packed params; on CPU tensors the same Function runs both
+plain versions. The packing gather's autograd scatter-adds each tile's
+gradient onto its gaussians.
 """
 
 from __future__ import annotations
@@ -24,8 +31,9 @@ import torch
 
 from .. import kernels
 from .cameras import make_camera
-from .splat import (TILE, Projected, activate_opacity, activate_scales,
-                    bin_gaussians_sorted, blend_tiles_plain, project_gaussians)
+from .splat import (ALPHA_MAX, T_EPS, TILE, Projected, activate_opacity,
+                    activate_scales, bin_gaussians_sorted, blend_tiles_plain,
+                    project_gaussians, slot_alpha, tile_pixels)
 from .splat_segmented import NPARAM, P, tiles_to_image
 
 
@@ -53,7 +61,8 @@ def composite_tiles_plain(tile_params: torch.Tensor, tx: int,
     (T, 9, K) -> (T, 256, 3)."""
     T, _, K = tile_params.shape
     return blend_tiles_plain(lambda j: tile_params[:, :, j].T, K, T, tx,
-                             tiles_per_frame or T, tile_params.device)
+                             tiles_per_frame or T, tile_params.device,
+                             tile_params.dtype)
 
 
 def composite_tiles(tile_params: torch.Tensor, tx: int,
@@ -83,6 +92,124 @@ def composite_tiles(tile_params: torch.Tensor, tx: int,
 
 composite_tiles.launches = 0
 
+BWD_CHUNK = 64   # slots whose log-transmittance K2 keeps per pixel at a time
+
+
+def composite_tiles_bwd_plain(tile_params: torch.Tensor, g: torch.Tensor,
+                              tx: int, tiles_per_frame: int = 0) -> torch.Tensor:
+    """Plain version of K2, the JAX package's `_tile_bwd_kernel` rule for
+    rule, in K2's order: a forward sweep keeping each chunk's starting
+    log-transmittance, then the chunks back to front, each rebuilt forward
+    from its start and walked back to front with the suffix sum of G w.
+    (T, 9, K) params, (T, 256, 3) output gradient -> d params (T, 9, K)."""
+    T, _, K = tile_params.shape
+    dt, dev = tile_params.dtype, tile_params.device
+    px, py = tile_pixels(T, tx, tiles_per_frame or T, dev, dt)
+    slot = [tile_params[:, :, j].T for j in range(K)]
+
+    logT = torch.zeros(T, P, device=dev, dtype=dt)
+    acc = torch.zeros(3, T, P, device=dev, dtype=dt)
+    starts = []
+    for j in range(K):
+        if j % BWD_CHUNK == 0:
+            starts.append(logT)
+        alpha = slot_alpha(slot[j], px, py)[5]
+        logT_after = logT + torch.log1p(-alpha)
+        w = alpha * torch.exp(logT)
+        w = torch.where(torch.exp(logT_after) < T_EPS, torch.zeros_like(w), w)
+        acc = acc + w[None] * slot[j][6:9][:, :, None]
+        logT = logT_after
+    T_final = torch.exp(logT)
+    pre = acc + T_final[None]
+    gc = g.permute(2, 0, 1)
+    gr, gg, gb = torch.where((pre > 0.0) & (pre < 1.0), gc, torch.zeros_like(gc))
+    gT = gr + gg + gb
+    bg = gT * T_final
+
+    out = torch.zeros_like(tile_params)
+    S = torch.zeros(T, P, device=dev, dtype=dt)
+    zero = torch.zeros((), device=dev, dtype=dt)
+    for c in range(len(starts) - 1, -1, -1):
+        js = range(c * BWD_CHUNK, min(K, (c + 1) * BWD_CHUNK))
+        lts, lg = {}, starts[c]
+        for j in js:
+            lts[j] = lg
+            lg = lg + torch.log1p(-slot_alpha(slot[j], px, py)[5])
+        for j in reversed(js):
+            p = slot[j]
+            dx, dy, power, e, araw, alpha, keep = slot_alpha(p, px, py)
+            lb = lts[j]
+            la = lb + torch.log1p(-alpha)
+            Tb = torch.exp(lb)
+            notcut = ~(torch.exp(la) < T_EPS)
+            w = torch.where(notcut, alpha * Tb, zero)
+            G = gr * p[6][:, None] + gg * p[7][:, None] + gb * p[8][:, None]
+            dalpha = torch.where(notcut, G * Tb, zero) - (S + bg) / (1.0 - alpha)
+            dalpha = torch.where(keep, dalpha, zero)
+            S = S + G * w
+            dar = torch.where(araw < ALPHA_MAX, dalpha, zero)
+            dpow = torch.where(power < 0.0, dar * araw, zero)
+            vals = (dpow * (p[2][:, None] * dx + p[3][:, None] * dy),
+                    dpow * (p[4][:, None] * dy + p[3][:, None] * dx),
+                    dpow * (-0.5 * dx * dx), dpow * (-dx * dy),
+                    dpow * (-0.5 * dy * dy), dar * e, gr * w, gg * w, gb * w)
+            out[:, :, j] = torch.stack([v.sum(1) for v in vals], 1)
+    return out
+
+
+def composite_tiles_bwd(tile_params: torch.Tensor, g: torch.Tensor, tx: int,
+                        tiles_per_frame: int = 0) -> torch.Tensor:
+    """K2 on CUDA tensors, its plain version on CPU tensors. tile_params
+    (T, 9, K) and g (T, 256, 3) float32 -> d tile_params (T, 9, K)."""
+    if tile_params.device.type == "cpu":
+        return composite_tiles_bwd_plain(tile_params, g, tx, tiles_per_frame)
+    if tile_params.device.type != "cuda":
+        raise ValueError(f"composite_tiles_bwd: unsupported device {tile_params.device}")
+    T, _, K = tile_params.shape
+    for name, t, shape in (("tile_params", tile_params, (T, NPARAM, K)),
+                           ("g", g, (T, P, 3))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or \
+                not t.is_contiguous() or t.device != tile_params.device:
+            raise ValueError(f"composite_tiles_bwd: {name} must be contiguous "
+                             f"{shape} float32 on {tile_params.device}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    out = torch.empty_like(tile_params)
+    lib = kernels.library("splat_tiles_bwd")
+    rc = lib.splat_tiles_bwd_launch(tile_params.data_ptr(), g.data_ptr(), T, K, tx,
+                                    tiles_per_frame or T, out.data_ptr(),
+                                    kernels.stream_ptr(tile_params.device))
+    kernels.check(rc, "splat_tiles_bwd")
+    composite_tiles_bwd.launches += 1
+    return out
+
+
+composite_tiles_bwd.launches = 0
+
+
+class CompositeTiles(torch.autograd.Function):
+    """The tile composite under autograd: K1 forward, K2 backward (their
+    plain versions on CPU tensors). Saves only the packed params."""
+
+    @staticmethod
+    def forward(ctx, tile_params, tx, tiles_per_frame):
+        ctx.tx, ctx.tiles_per_frame = tx, tiles_per_frame
+        ctx.save_for_backward(tile_params)
+        return composite_tiles(tile_params, tx, tiles_per_frame)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tile_params,) = ctx.saved_tensors
+        return (composite_tiles_bwd(tile_params, g.contiguous(), ctx.tx,
+                                    ctx.tiles_per_frame), None, None)
+
+
+def composite(tile_params: torch.Tensor, tx: int,
+              tiles_per_frame: int = 0) -> torch.Tensor:
+    """The composite, through CompositeTiles where a gradient will flow."""
+    if torch.is_grad_enabled() and tile_params.requires_grad:
+        return CompositeTiles.apply(tile_params, tx, tiles_per_frame)
+    return composite_tiles(tile_params, tx, tiles_per_frame)
+
 
 def render_frames(xyz: torch.Tensor, rot: torch.Tensor, raw_scales: torch.Tensor,
                   raw_opacity: torch.Tensor, colors: torch.Tensor,
@@ -102,7 +229,7 @@ def render_frames(xyz: torch.Tensor, rot: torch.Tensor, raw_scales: torch.Tensor
     packed = torch.cat([
         pack_tile_params(Projected(*(a[f] for a in proj)), width, height,
                          max_per_tile, max_window) for f in range(F)])
-    tiles = composite_tiles(packed, tx, tx * ty)
+    tiles = composite(packed, tx, tx * ty)
     return tiles_to_image(tiles.reshape(F, tx * ty, P, 3), tx, ty)
 
 

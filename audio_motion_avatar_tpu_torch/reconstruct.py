@@ -6,7 +6,7 @@ test|predict`.
 `Reconstructor` maps a reference batch (video, SMPL-X params, cameras) and
 an optional batch of test cameras and target images to the rendered
 reference views, the novel views, the gaussians and the `stage1_loss`
-metrics (training/stage1.py, forward only).
+metrics (training/stage1.py, run without autograd).
 
 The Sapiens ViT runs in bf16 whatever the config says; the triplane
 encoder's SMPL-X predictor, the fusion transformer, the upsampler and the

@@ -1,4 +1,4 @@
-"""Stage-1 evaluation: the JAX package's `stage1_loss` forward, no gradient.
+"""Stage-1 training and evaluation (the JAX package's training/stage1.py).
 
     loss = [l1 + 0.1 (1 - ssim)](reference views)
          + [l1 + 0.1 (1 - ssim)](the reference frame's gaussians rendered
@@ -7,7 +7,11 @@
 
 plus the gaussian heads' health statistics. The novel views go through
 `splat_tiles.render_multi_view`: every test view of the batch in one
-composite launch (kernel K1 on the card).
+composite launch (kernel K1 on the card; under autograd K2 for its
+gradient). `stage1_loss` is differentiable; `make_train_step` runs it,
+backpropagates (the frozen Sapiens ViT gets no gradient) and applies the
+optimizer; `Reconstructor` (reconstruct.py) and `make_eval_step` run it
+without autograd.
 """
 
 from __future__ import annotations
@@ -19,9 +23,9 @@ import torch
 from ..data.synthetic import VideoBatch
 from ..ops.splat_tiles import render_multi_view
 from ..utils import losses as L
+from .train_state import TrainState, check_differentiable, global_norm
 
 
-@torch.no_grad()
 def stage1_loss(model, statics, ref_batch: VideoBatch,
                 test_batch: Optional[VideoBatch], cfg):
     """model: models.avatar.TriplaneGaussianAvatar; batches of tensors on
@@ -50,8 +54,8 @@ def stage1_loss(model, statics, ref_batch: VideoBatch,
         loss = loss + l1_test + 0.1 * ssim_test
         metrics.update(l1_test=l1_test, ssim_test=ssim_test)
 
-    op = out.gaussians["opacity"].float()
-    sc = out.gaussians["scale"].float()
+    op = out.gaussians["opacity"].detach().float()
+    sc = out.gaussians["scale"].detach().float()
     metrics.update(
         opacity_logit_mean=op.mean(), opacity_logit_min=op.min(),
         opacity_logit_max=op.max(), opacity_act_mean=torch.sigmoid(op).mean(),
@@ -66,6 +70,40 @@ def stage1_loss(model, statics, ref_batch: VideoBatch,
     loss = loss + 0.01 * loss_smplx
     metrics["loss"] = loss
     return loss, metrics, out, novel
+
+
+def make_train_step(model, statics, cfg, with_test_views: bool = True):
+    """(state: TrainState, ref_batch, test_batch) -> (state, metrics): the
+    loss, its backward and one optimizer call (an accumulation mini-step
+    under accumulate_steps > 1). metrics: detached scalars, with grad_norm
+    the gradients' global norm before clipping. Raises on a configuration
+    whose render path has a forward-only kernel."""
+    check_differentiable(cfg)
+
+    def step(state: TrainState, ref_batch: VideoBatch,
+             test_batch: Optional[VideoBatch]):
+        state.zero_grad()
+        loss, metrics, _, _ = stage1_loss(
+            state.model, statics, ref_batch,
+            test_batch if with_test_views else None, cfg)
+        loss.backward()
+        grads = state.grads()
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads.values()).detach()
+        state.apply_gradients(grads)
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(model, statics, cfg):
+    """(ref_batch, test_batch) -> the stage-1 metrics, without autograd."""
+
+    @torch.no_grad()
+    def step(ref_batch: VideoBatch, test_batch: Optional[VideoBatch]):
+        return stage1_loss(model, statics, ref_batch, test_batch, cfg)[1]
+
+    return step
 
 
 def make_render_fn(model, statics):

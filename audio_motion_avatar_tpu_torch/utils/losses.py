@@ -1,4 +1,6 @@
-"""Losses and image metrics, forward only (the JAX package's utils/losses.py).
+"""Losses and image metrics (the JAX package's utils/losses.py), plain
+PyTorch and differentiable as written: autograd of the geodesic loss's
+clamped arccos and of SSIM matches jax.grad (tests/test_torch_grad_kernels.py).
 
 L1 / L2, PSNR, windowed SSIM on (B, T, H, W, C) images (11x11 Gaussian
 window, sigma 1.5, zero padding), the geodesic rotation loss and the

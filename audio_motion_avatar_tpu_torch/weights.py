@@ -15,6 +15,11 @@ attention kernels (C, H, D) / (H, D, C) -> Linear over H*D; biases (H, D)
 (3, C, T) -> the reference Conv3d weight (3C, 1, T, 1, 1); LayerNorm /
 GroupNorm / affine `scale` and Embed `embedding` -> `weight`; raw params
 (pos_embed, smpl_tokens, the tokenizer's embeddings) keep name and layout.
+
+Every rule is a relayout, so a gradient tree (jax.grad of a loss of the
+params: a cotangent has the params' layout) maps the same way:
+params_from_flax of it gives the gradients keyed and laid out as the port's
+parameters' .grad, leaf by leaf.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compiles the four CUDA kernels from audio_motion_avatar_tpu_torch/csrc
+  1. build   — compiles the six CUDA kernels from audio_motion_avatar_tpu_torch/csrc
                (one nvcc per source, in parallel) into build/kernels/;
   2. kernels — calls each kernel's wrapper at the serving path's shapes and
                holds it against its plain PyTorch version on the same inputs:
@@ -23,6 +23,16 @@ Phases (any failure exits non-zero):
                rule;
                times each with CUDA events beside its plain version, its
                bound and (A) scaled_dot_product_attention as a yardstick;
+               train kernels: K2 (tile splat backward; the stage-1 step's 1 +
+               8 views at 1024^2 and one 1296x2304 frame, K = 512, a seeded
+               output gradient) against its plain version at rtol 1e-4, atol
+               1e-5 max|ref|; A-bwd (attention backward) at every training
+               shape (audio self-attention and its final_tail, fusion and
+               predictor self and cross, the PTv3 masked patches) against
+               the fp32 plain backward, dQ / dK / dV each under A's rule,
+               which must reject a backward that drops the ragged last keys
+               or ignores the mask; times beside the plain versions, the
+               bounds and (A-bwd) scaled_dot_product_attention's backward;
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -55,11 +65,30 @@ Phases (any failure exits non-zero):
   8. serve from a reference — the serving model with its stage-1 stack: the
                tokens of 2 streams' 2 reference frames (the stage-1 pass, render
                off), then one rollout request from them; frames checked as in 4.
+  9. small train — a tiny train step of each stage on the card against the
+               CPU (plain versions): fp32, loss within 1e-4 and gradients
+               within 1e-3; then bf16 with 64-wide heads: every A-bwd and K2
+               launch of the step held against its plain version on its own
+               inputs, and the step against the CPU's bf16 step with the
+               attention rounding where kernels A and A-bwd round, within 3x
+               the largest CPU bf16-vs-fp32 distance over three draws of the
+               input frames; launches as the config implies;
+ 10. train stage 1 — full width (AvatarConfig(), Sapiens-1B frozen, bf16, B = 1,
+               1024^2, 8 test views, lr 5e-5, accumulate 4, clip 1.0): 1
+               warm-up + 8 micro-steps (two updates); ms a micro-step, peak
+               memory, finite losses, moved trainable parameters, a
+               bit-identical ViT, the K1 / K2 / A / A-bwd launches the config
+               implies (remat recompute included);
+ 11. train stage 2 — the serving widths with the default render form at
+               1296x2304, B = 2, T_in = 2, T_out = 6, lr 1e-4, clip 1.0, both
+               remat knobs: 1 warm-up + 3 steps through Stage2TrainLoop, one
+               reusing the prediction cache; the same checks.
 Then one {"kernels": [...]} line, the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}. Takes a few minutes on one
+the last line {"ok": true, "device": {...}}. Takes several minutes on one
 H100, the kernels' build included.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -73,6 +102,51 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 # (9), min / exp / scale / min (4), 2 compares, log1p + add (2), exp +
 # compare (2), weight (2), 3 colour multiply-adds (6)
 SPLAT_OPS_PER_PAIR = 27
+# ... and of K2's function, counted as the gradient needs it and not as
+# this kernel does it: one forward recompute (27: the clip mask and T_final
+# need the whole blend) and one backward walk that evaluates each alpha once:
+# dx, dy, power, exp, alpha (17), log1p + add (2), two exp + compare (3),
+# weight (2), G (5), dalpha (6), suffix sum (2), gates (3), the nine
+# per-slot values (17) and their nine sums (9). K2 itself also rebuilds each
+# chunk's prefix (19 more), which the bound does not count.
+SPLAT_BWD_OPS_PER_PAIR = 27 + 66
+
+
+def train_launches(cfg, stage, B, T_in, T_out):
+    """Kernel launches one train micro-step implies, the remat recompute
+    included: {attention, attention_bwd, composite_tiles,
+    composite_tiles_bwd}. Stage 1: B x T_in reference frames rendered under
+    autograd and T_out test views (one composite launch for all). Stage 2:
+    the stage-1 pass over B x T_in reference frames without autograd (its
+    render included), then the rollout of B x T_out frames. A 64-wide head
+    runs kernel A; the ViT's always without autograd."""
+    def wide(head_dim):
+        return head_dim == 64
+
+    vit = cfg.vit_depth if wide(cfg.image_feature_dim // cfg.vit_heads) else 0
+    pred = 2 * cfg.smplx_transformer_layers if wide(cfg.smplx_transformer_head_dim) else 0
+    fus = 2 * cfg.cross_transformer_layers if wide(cfg.cross_transformer_head_dim) else 0
+    dec0 = cfg.ptv3_dec_depths[0] if not cfg.no_point_refiner and \
+        wide(cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0]) else 0
+    remat_f = 2 if cfg.frames_scan_remat else 1
+
+    def chunks(frames):
+        F = cfg.frames_per_chunk
+        return frames // F if F > 0 and frames % F == 0 else frames
+
+    if stage == 1:
+        ref = chunks(B * T_in)
+        return {"attention": vit + pred + fus + dec0 * ref * remat_f,
+                "attention_bwd": pred + fus + dec0 * ref,
+                "composite_tiles": ref * remat_f + 1,
+                "composite_tiles_bwd": ref + 1}
+    audio = cfg.audio_transformer_layers * T_out if wide(cfg.audio_transformer_head_dim) else 0
+    remat_a = 2 if cfg.audio_transformer_remat else 1
+    ref, out = chunks(B * T_in), chunks(B * T_out)
+    return {"attention": vit + pred + fus + dec0 * ref + audio * remat_a + dec0 * out * remat_f,
+            "attention_bwd": audio + dec0 * out,
+            "composite_tiles": ref + out * remat_f,
+            "composite_tiles_bwd": out}
 
 
 def time_ms(fn, iters, warmup=1):
@@ -285,12 +359,11 @@ def check_attention_stage1(dev):
     return times
 
 
-def check_tiles(dev):
-    """K1 at the reconstruction's shapes: 30k body-like gaussians seen by 1
-    reference and 8 novel orbiting views at 1024^2, binned and packed per
-    view (K = max_per_tile = 512, window 4 for the reference and 8 for the
-    novel views, as the renderer and render_multi_view bin them), all views
-    in one launch."""
+def packed_views(dev, W, H, windows, K=512, N=30000):
+    """30k body-like gaussians seen by len(windows) orbiting views at W x H,
+    binned and packed per view (K = max_per_tile slots, each view's binning
+    window), stacked as the renderer's one launch takes them: (packed
+    (F * T, 9, K), tx, T, valid (tile, slot) entries)."""
     import numpy as np
     import torch
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
@@ -299,7 +372,7 @@ def check_tiles(dev):
         Projected, activate_opacity, activate_scales, bin_gaussians_sorted,
         project_gaussians)
 
-    N, W, H, F, K = 30000, 1024, 1024, 9, 512
+    F = len(windows)
     rng = np.random.RandomState(0)
     xyz = (rng.randn(N, 3) * np.array([0.25, 0.6, 0.15])).astype(np.float32)
     rot = rng.randn(N, 4).astype(np.float32)
@@ -318,11 +391,23 @@ def check_tiles(dev):
         activate_scales(t(raw_s)).expand(F, N, 3),
         activate_opacity(t(raw_o)).expand(F, N), t(col).expand(F, N, 3), cam)
     views = [Projected(*(a[f] for a in proj)) for f in range(F)]
-    windows = [4] + [8] * (F - 1)
     packed = torch.cat([st.pack_tile_params(v, W, H, K, w) for v, w in zip(views, windows)])
     valid = sum(int(bin_gaussians_sorted(v, W, H, K, max_window=w)[2].sum())
                 for v, w in zip(views, windows))
-    tx, T = W // 16, (W // 16) * (H // 16)
+    return packed, W // 16, (W // 16) * (H // 16), valid
+
+
+def check_tiles(dev):
+    """K1 at the reconstruction's shapes: 30k body-like gaussians seen by 1
+    reference and 8 novel orbiting views at 1024^2, binned and packed per
+    view (K = max_per_tile = 512, window 4 for the reference and 8 for the
+    novel views, as the renderer and render_multi_view bin them), all views
+    in one launch."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+
+    N, W, H, F, K = 30000, 1024, 1024, 9, 512
+    packed, tx, T, valid = packed_views(dev, W, H, [4] + [8] * (F - 1), K, N)
     out_k = st.composite_tiles(packed, tx, T)
     out_p = st.composite_tiles_plain(packed, tx, T)
     torch.cuda.synchronize()
@@ -344,6 +429,146 @@ def check_tiles(dev):
             "plain_ms": time_ms(lambda: st.composite_tiles_plain(packed, tx, T), 1),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
             "shape": f"({F * T}, 9, {K}) fp32, {valid} valid entries"}
+
+
+def bwd_close(got, ref):
+    """K2's rule against its plain version: rtol 1e-4 (the JAX package's
+    own for its backward kernel) and atol 1e-5 of the largest |ref| (the
+    per-slot sums over a tile's 256 pixels are added in another order).
+    Returns the worst ratio of |diff| to that tolerance (1 or less agrees)."""
+    import torch
+    tol = 1e-4 * ref.abs() + 1e-5 * float(ref.abs().max()) + torch.finfo(torch.float32).tiny
+    return float(((got - ref).abs() / tol).max())
+
+
+def check_tiles_bwd(dev):
+    """K2 at the training shapes: the stage-1 step's 1 reference and 8 test
+    views at 1024^2 (K = 512, windows 4 and 8) and one 1296x2304 stage-2
+    frame (window 4), each in one launch, with a seeded output gradient;
+    held against its plain version, timed beside it."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+
+    out = None
+    for name, W, H, windows in (("1 + 8 views at 1024^2", 1024, 1024, [4] + [8] * 8),
+                                ("one 1296x2304 frame", 2304, 1296, [4])):
+        packed, tx, T, valid = packed_views(dev, W, H, windows)
+        g = torch.randn(packed.shape[0], st.P, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        got = st.composite_tiles_bwd(packed, g, tx, T)
+        ref = st.composite_tiles_bwd_plain(packed, g, tx, T)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        excess = bwd_close(got, ref)
+        ms = time_ms(lambda: st.composite_tiles_bwd(packed, g, tx, T), 5)
+        plain_ms = time_ms(lambda: st.composite_tiles_bwd_plain(packed, g, tx, T), 1, warmup=0)
+        nbytes = 2 * packed.numel() * 4 + g.numel() * 4
+        bound_ms, by = bound(SPLAT_BWD_OPS_PER_PAIR * valid * st.P, PEAK_FP32_FLOPS, nbytes)
+        ops_ms = SPLAT_BWD_OPS_PER_PAIR * valid * st.P / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"[train kernels] K2 splat_tiles_bwd {name}: {tuple(packed.shape)}, {valid} "
+              f"valid entries; max|diff|={err:.3e}, max|ref|={float(ref.abs().max()):.3e}, "
+              f"excess {excess:.3f} (tol 1: rtol 1e-4, atol 1e-5 max|ref|); {ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by}; operations "
+              f"{ops_ms:.4f} ms at {SPLAT_BWD_OPS_PER_PAIR} a valid pair, bytes "
+              f"{bytes_ms:.4f} ms)", flush=True)
+        if not (excess <= 1.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"kernel K2 disagrees with its plain version on {name}")
+        if out is None:
+            out = {"name": "splat_tiles_bwd", "err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                   "shape": f"({packed.shape[0]}, 9, 512) fp32, {valid} valid entries"}
+        del packed, g, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_attention_bwd(dev):
+    """A-bwd at every training shape against the fp32 plain backward on the
+    same bf16 inputs: dQ, dK and dV each under ops/attention.excess_error's
+    rule, which must also reject a backward that drops the ragged last keys
+    and one that ignores the key mask. Times the audio self-attention
+    beside its plain version, its bound and scaled_dot_product_attention's
+    backward."""
+    import torch
+    import torch.nn.functional as Fn
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+
+    cfg = AvatarConfig()
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    S_img = (cfg.sapiens_resolution // cfg.vit_patch) ** 2
+    L = cfg.smpl_token_len
+    S_tri = 3 * cfg.triplane_resolution ** 2
+    S_aud, S_fus = 2 * (S_tri + L), S_tri + L
+    # 30000 points in patches of 512: 59 patches, the last with 304 valid
+    G, P = 59, cfg.ptv3_patch_size
+    mask = torch.ones(G, P, dtype=torch.bool, device=dev)
+    mask[-1, 30000 - (G - 1) * P:] = False
+    cases = [("audio self", 2, 8, S_aud, S_aud, None),
+             ("audio final_tail", 2, 8, S_aud // 2, S_aud, None),
+             ("fusion self", 1, 8, S_fus, S_fus, None),
+             ("fusion cross", 1, 8, S_fus, S_img, None),
+             ("predictor self", 1, 8, L, L, None),
+             ("predictor cross", 1, 8, L, S_img, None),
+             ("ptv3 masked", G, 4, P, P, mask)]
+    scale = 64 ** -0.5
+    line, errs = None, []
+    for name, B, H, Sq, Skv, m in cases:
+        q, k, v, dout = rnd(B, H, Sq, 64), rnd(B, H, Skv, 64), rnd(B, H, Skv, 64), rnd(B, H, Sq, 64)
+        out, stats = at._attention_kernel(q, k, v, scale, m, True)
+        got = at.attention_bwd(q, k, v, scale, m, out, stats, dout)
+        f32 = [t.float() for t in (q, k, v)]
+        ref = at.attention_bwd_plain(*f32, scale, m, dout.float())
+        torch.cuda.synchronize()
+        excess = max(at.excess_error(a, b) for a, b in zip(got, ref))
+        errs.append(max(float((a.float() - b).abs().max()) for a, b in zip(got, ref)))
+        if m is None:
+            n = Skv - Skv % 64 if Skv % 64 else Skv - 64
+            wrong = at.attention_bwd_plain(f32[0], f32[1][:, :, :n], f32[2][:, :, :n], scale,
+                                           None, dout.float())
+            pad = Skv - n
+            wrong = (wrong[0], Fn.pad(wrong[1], (0, 0, 0, pad)), Fn.pad(wrong[2], (0, 0, 0, pad)))
+            wrong_name = f"drops the last {pad} keys"
+        else:
+            wrong = at.attention_bwd_plain(*f32, scale, None, dout.float())
+            wrong_name = "ignores the mask"
+        wrong_excess = max(at.excess_error(a, b) for a, b in zip(wrong, ref))
+        ms = time_ms(lambda: at.attention_bwd(q, k, v, scale, m, out, stats, dout), 5)
+        flops = 10.0 * B * H * Sq * Skv * 64
+        print(f"[train kernels] A-bwd {name}: q ({B}, {H}, {Sq}, 64) kv ({B}, {H}, {Skv}, 64) "
+              f"excess {excess:.3f} over dQ/dK/dV (tol 1); a backward that {wrong_name}: "
+              f"excess {wrong_excess:.3f}; {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)",
+              flush=True)
+        if not excess <= 1.0:
+            raise AssertionError(f"kernel A-bwd disagrees on {name}: excess {excess}")
+        if not wrong_excess > 1.0:
+            raise AssertionError(f"the rule on {name} does not reject a backward that "
+                                 f"{wrong_name}")
+        if name == "audio self":
+            nbytes = 8 * q.numel() * 2 + stats.numel() * 4
+            bound_ms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+            qa, ka, va = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            o = Fn.scaled_dot_product_attention(qa, ka, va)
+            lib = time_ms(lambda: torch.autograd.grad(o, (qa, ka, va), dout,
+                                                      retain_graph=True), 5)
+            line = {"name": "attention_bwd", "ms": ms,
+                    "plain_ms": time_ms(lambda: at.attention_bwd_plain(
+                        *f32, scale, None, dout.float()), 1, warmup=0),
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": lib,
+                    "shape": f"({B}, {H}, {Sq}, 64) bf16"}
+            print(f"[train kernels] A-bwd audio self: bound {bound_ms:.4f} ms ({by}), plain "
+                  f"{line['plain_ms']:.2f} ms, scaled_dot_product_attention backward "
+                  f"{lib:.4f} ms", flush=True)
+            del o, qa, ka, va
+        del q, k, v, dout, out, stats, got, ref, wrong, f32
+        torch.cuda.empty_cache()
+    line["err"] = max(errs)
+    return line
 
 
 def tame_seeded_weights(model):
@@ -760,6 +985,363 @@ def serve_from_reference(dev):
     frames_ok(rendered, "serve from reference")
 
 
+def train_grads(tr):
+    """The trainable parameters' gradients after a step, fp32 on the CPU."""
+    return {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()
+            if p.grad is not None}
+
+
+def grads_distance(a, b):
+    """||a - b|| / ||b|| over all the gradient leaves of b."""
+    import torch
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+    den = sum(float((b[k] ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def seeded_trainer(stage, cfg, dev, dtype=None, body=None, seed=0, optim=None,
+                   replacement_prob=0.0):
+    """build_trainer with the seeded weights made to render visible
+    gaussians (and, in stage 2, the rollout damped) as the other phases do."""
+    from audio_motion_avatar_tpu_torch.train import build_trainer
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    tr = build_trainer(stage, cfg, device=dev, dtype=dtype, smplx_model=body, seed=seed,
+                       optim=optim, replacement_prob=replacement_prob)
+    full = cfg.image_size[0] >= 512
+    perturb_heads(tr.model, seed=1, std=1e-2 if full else 0.05)
+    if stage == 2:
+        tame_seeded_weights(tr.model)
+    if full:
+        visible_heads(tr.model, scale_bias=-1.0, opacity_bias=0.0)
+    else:
+        visible_heads(tr.model)
+    return tr
+
+
+def attention_rounded(q, k, v, scale, kv_mask=None):
+    """Kernel A's function for bf16 operands, rounding where A rounds: the
+    probabilities to bf16 for the P V product, normalised after it by the
+    fp32 row sum, the output to bf16; the rest in fp32."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], at.MASKED)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhst,bhtd->bhsd", e.bfloat16().float(), v.float())
+    return (out / e.sum(-1, keepdim=True)).bfloat16()
+
+
+def attention_bwd_rounded(q, k, v, scale, kv_mask, dout, out=None):
+    """Kernel A-bwd's function for bf16 operands, rounding where A-bwd
+    rounds: P to bf16 for dV = P^T dO, dS to bf16 for dQ = dS K and
+    dK = dS^T Q, Delta = rowsum(dO O) from the forward's bf16 output `out`
+    (attention_rounded's when None), as the kernel takes it; the rest in
+    fp32."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+
+    qf, kf, vf, g = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], at.MASKED)
+    p = torch.softmax(s, dim=-1)
+    o = attention_rounded(q, k, v, scale, kv_mask) if out is None else out
+    delta = (g * o.float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bhst,bhsd->bhtd", p.bfloat16().float(), g)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", g, vf) - delta)
+    if kv_mask is not None:
+        ds = ds.masked_fill(~kv_mask[:, None, None, :], 0.0)
+    ds = ds.bfloat16().float()
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@contextlib.contextmanager
+def kernel_rounding():
+    """Within it, the plain versions of kernels A and A-bwd round where the
+    kernels round (attention_rounded, attention_bwd_rounded) for bf16
+    operands; fp32 operands keep the plain versions. The plain versions
+    compute all of it in fp32, so without this a bf16 model on the CPU is no
+    yardstick for the same model on the kernels."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+
+    plain, plain_bwd = at.attention_plain, at.attention_bwd_plain
+
+    def fwd(q, k, v, scale, kv_mask=None):
+        if q.dtype != torch.bfloat16:
+            return plain(q, k, v, scale, kv_mask)
+        return attention_rounded(q, k, v, scale, kv_mask)
+
+    def bwd(q, k, v, scale, kv_mask, dout):
+        if q.dtype != torch.bfloat16:
+            return plain_bwd(q, k, v, scale, kv_mask, dout)
+        return attention_bwd_rounded(q, k, v, scale, kv_mask, dout)
+
+    at.attention_plain, at.attention_bwd_plain = fwd, bwd
+    try:
+        yield
+    finally:
+        at.attention_plain, at.attention_bwd_plain = plain, plain_bwd
+
+
+@contextlib.contextmanager
+def checked_backwards():
+    """Within it, every launch of A-bwd and K2 is also held against a plain
+    version on the very tensors the caller gave it: A-bwd's dQ / dK / dV
+    against attention_bwd_rounded (the forward's own bf16 output in Delta)
+    under ops/attention.excess_error, K2 against its plain version under
+    bwd_close. Yields {name: the worst ratio reached} (1 or less agrees),
+    with A-bwd's against the fp32 plain backward beside it
+    ("attention_bwd_fp32", for the record). The launch counters count as
+    they do without it."""
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+
+    worst = {"attention_bwd": 0.0, "composite_tiles_bwd": 0.0, "attention_bwd_fp32": 0.0}
+    a_bwd, k2 = at.attention_bwd, st.composite_tiles_bwd
+
+    def note(name, value):
+        worst[name] = max(worst[name], value)
+
+    def attention_bwd(q, k, v, scale, kv_mask, out, stats, dout):
+        got = a_bwd(q, k, v, scale, kv_mask, out, stats, dout)
+        ref = attention_bwd_rounded(q, k, v, scale, kv_mask, dout, out)
+        note("attention_bwd", max(at.excess_error(a, b) for a, b in zip(got, ref)))
+        ref = at.attention_bwd_plain(q.float(), k.float(), v.float(), scale, kv_mask,
+                                     dout.float())
+        note("attention_bwd_fp32", max(at.excess_error(a, b) for a, b in zip(got, ref)))
+        return got
+
+    def composite_tiles_bwd(tile_params, g, tx, tiles_per_frame=0):
+        got = k2(tile_params, g, tx, tiles_per_frame)
+        ref = st.composite_tiles_bwd_plain(tile_params, g, tx, tiles_per_frame)
+        note("composite_tiles_bwd", bwd_close(got, ref))
+        return got
+
+    # the kernels' wrappers count their launches on the module's name
+    attention_bwd.launches, composite_tiles_bwd.launches = a_bwd.launches, k2.launches
+    at.attention_bwd, st.composite_tiles_bwd = attention_bwd, composite_tiles_bwd
+    try:
+        yield worst
+    finally:
+        at.attention_bwd, st.composite_tiles_bwd = a_bwd, k2
+        a_bwd.launches, k2.launches = attention_bwd.launches, composite_tiles_bwd.launches
+
+
+def check_small_train(dev):
+    """A tiny train step of each stage on the card against the CPU (plain
+    versions), the CPU's image tokens fed to both (the ViT rounds bf16
+    differently on the two).
+
+    fp32 with the tiny heads (K1, K2): loss within 1e-4 and every gradient
+    within 1e-3 of the CPU's (global relative norm).
+
+    bf16 with 64-wide heads (A and A-bwd too): every A-bwd and K2 launch of
+    the card's step is held against its plain version on its own inputs
+    (checked_backwards; this is what catches a wrong backward, since the
+    whole step is chaotic in bf16: a rounding-level change, the kernels'
+    rounding of P alone included, moves the tiny step's loss by up to ~1e-3
+    and its gradients by 1-25%). The step itself is held against the CPU's
+    bf16 step with the attention rounding as the kernels do
+    (kernel_rounding), to 3x the CPU's own bf16-vs-fp32 distance, the
+    largest over three draws of the input frames (one draw of a scalar
+    distance can fall far below its usual size). The launches must equal
+    the count the configuration implies.
+    Also printed: the distances with the fp32 plain attention on the CPU,
+    the yardstick that leaves the kernels' rounding out."""
+    import dataclasses
+
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.training.train_state import OptimConfig
+
+    body = smplx_ops.synthetic_model(seed=0, num_verts=300)
+    size = (32, 32)
+    counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    optim = OptimConfig(learning_rate=1e-3, accumulate_steps=1)
+    # (reference frames, targets) seeds of the draws; the first is the card's
+    draws = ((0, 1), (2, 3), (4, 5))
+
+    def batches(stage, cfg, d, seeds):
+        ref, tgt = seeds
+        if stage == 1:
+            return (to_device(make_batch(1, 1, size, seed=ref), d),
+                    to_device(make_batch(1, 3, size, seed=tgt), d))
+        return (to_device(make_batch(2, cfg.triplane_input_frames, size, seed=ref), d),
+                to_device(make_batch(2, cfg.triplane_output_frames, size, seed=tgt,
+                                     with_audio=True, audio_dim=cfg.audio_feature_dim), d))
+
+    def run(stage, cfg, d, dtype, tokens, seeds=draws[0]):
+        tr = seeded_trainer(stage, cfg, d, dtype, body, optim=optim)
+        enc = tr.model.sapiens_encoder if stage == 1 else tr.model.triplane_gaussian.sapiens_encoder
+        own = None
+        if tokens is None:
+            own = enc(batches(stage, cfg, d, seeds)[0].video.flatten(0, 1)).cpu()
+        else:
+            flat = tokens.to(d)
+            enc.forward = lambda images: flat
+        m = tr.step(*batches(stage, cfg, d, seeds))
+        return m["loss"], train_grads(tr), own
+
+    def rounded_cpu(stage, cfg, tokens, seeds=draws[0]):
+        with kernel_rounding():
+            return run(stage, cfg, "cpu", torch.bfloat16, tokens, seeds)
+
+    for stage in (1, 2):
+        cfg = AvatarConfig.tiny(image_size=size)
+        loss_cpu, g_cpu, tokens = run(stage, cfg, "cpu", None, None)
+        loss_card, g_card, _ = run(stage, cfg, dev, None, tokens)
+        dl, dg = abs(loss_card - loss_cpu) / abs(loss_cpu), grads_distance(g_card, g_cpu)
+        print(f"[small train] stage {stage} tiny fp32 step, card vs CPU: loss {loss_card:.6f} "
+              f"vs {loss_cpu:.6f} (relative {dl:.2e}, tol 1e-4), gradients relative "
+              f"{dg:.2e} (tol 1e-3)", flush=True)
+        if not (dl <= 1e-4 and dg <= 1e-3):
+            raise AssertionError(f"tiny stage-{stage} train step on the card disagrees with the CPU")
+
+        cfg = dataclasses.replace(cfg, smplx_transformer_head_dim=64, cross_transformer_head_dim=64,
+                                  audio_transformer_head_dim=64)
+        for fn in counters:
+            fn.launches = 0
+        with checked_backwards() as worst:
+            loss_card, g_card, _ = run(stage, cfg, dev, torch.bfloat16, tokens)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        B, T_in, T_out = (1, 1, 3) if stage == 1 else (2, cfg.triplane_input_frames,
+                                                       cfg.triplane_output_frames)
+        want = train_launches(cfg, stage, B, T_in, T_out)
+        loss_r, g_r, _ = rounded_cpu(stage, cfg, tokens)
+        loss_p, g_p, _ = run(stage, cfg, "cpu", torch.bfloat16, tokens)
+        loss_f, g_f, _ = run(stage, cfg, "cpu", None, tokens)
+        noise = [(abs(loss_r - loss_f), grads_distance(g_r, g_f))]
+        for seeds in draws[1:]:
+            lf_, gf_, own = run(stage, cfg, "cpu", None, None, seeds)
+            lr_, gr_, _ = rounded_cpu(stage, cfg, own, seeds)
+            noise.append((abs(lr_ - lf_), grads_distance(gr_, gf_)))
+        got = (abs(loss_card - loss_r), grads_distance(g_card, g_r))
+        tol = tuple(3 * max(n[i] for n in noise) for i in (0, 1))
+        print(f"[small train] stage {stage} tiny bf16 step, 64-wide heads: launches {launches} "
+              f"(expected {want}); A-bwd and K2 on the step's own inputs against their plain "
+              f"versions: excess {worst['attention_bwd']:.3f}, "
+              f"{worst['composite_tiles_bwd']:.3f} (tol 1); A-bwd against the fp32 plain "
+              f"backward instead {worst['attention_bwd_fp32']:.3f}", flush=True)
+        print(f"[small train] stage {stage} tiny bf16 step: loss card {loss_card:.6f}, CPU bf16 "
+              f"rounding as the kernels {loss_r:.6f}, CPU bf16 with the fp32 plain attention "
+              f"{loss_p:.6f}, CPU fp32 {loss_f:.6f}; card vs CPU bf16 rounding as the kernels: "
+              f"loss |diff| {got[0]:.3e}, gradients relative {got[1]:.3e}; that CPU bf16 vs "
+              f"CPU fp32 over the draws {list(draws)}: loss "
+              f"{', '.join(f'{n[0]:.3e}' for n in noise)}, gradients "
+              f"{', '.join(f'{n[1]:.3e}' for n in noise)} (tol 3x the largest: "
+              f"{tol[0]:.3e}, {tol[1]:.3e}); with the fp32 plain attention instead: card vs CPU "
+              f"bf16 {abs(loss_card - loss_p):.3e}, {grads_distance(g_card, g_p):.3e}, CPU bf16 "
+              f"vs fp32 {abs(loss_p - loss_f):.3e}, {grads_distance(g_p, g_f):.3e}; the two CPU "
+              f"bf16 steps apart {abs(loss_r - loss_p):.3e}, {grads_distance(g_r, g_p):.3e}",
+              flush=True)
+        if launches != want:
+            raise AssertionError(f"launches {launches} != {want}")
+        if not (worst["attention_bwd"] <= 1.0 and worst["composite_tiles_bwd"] <= 1.0):
+            raise AssertionError(f"tiny bf16 stage-{stage} train step: a backward kernel "
+                                 f"disagrees with its plain version on its inputs: {worst}")
+        if not (got[0] <= tol[0] and got[1] <= tol[1] and tol[1] > 0):
+            raise AssertionError(f"tiny bf16 stage-{stage} train step on the card disagrees "
+                                 "with the CPU")
+
+
+def run_train(dev, stage):
+    """A full-width train run on the card; returns the launch counts of its
+    measured steps. Stage 1: AvatarConfig() defaults (Sapiens-1B geometry,
+    frozen), bf16, B = 1, a 1024^2 reference view and 8 test views,
+    train_stage1.yaml's optimizer (lr 5e-5, accumulate 4, clip 1.0): 1
+    warm-up micro-step, then 8 (two accumulated updates). Stage 2: the
+    serving model's widths with the default render form (dense upsampler,
+    tile splat), ted_speech.yaml's 1296x2304 frames, B = 2, T_in = 2,
+    T_out = 6, train_stage2.yaml's lr 1e-4 and clip 1.0, both remat knobs on,
+    through Stage2TrainLoop: 1 warm-up step and 3 with batch ids 1, 12, 2
+    at replacement probability 1 (batch 12 reuses the cache batch 0 wrote).
+    Checks finite losses, moved trainable parameters, a bit-identical
+    frozen ViT and the launches the configuration implies."""
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.train import STAGE1_OPTIM, STAGE2_OPTIM
+
+    tag = f"train stage {stage}"
+    if stage == 1:
+        cfg, B, T_in, T_out = AvatarConfig(), 1, 1, 8
+        ids, optim, prob = [0] * 9, STAGE1_OPTIM, 0.0
+    else:
+        cfg, B, T_in, T_out = AvatarConfig(image_size=(1296, 2304)), 2, 2, 6
+        ids, optim, prob = [0, 1, 12, 2], STAGE2_OPTIM, 1.0
+    H, W = cfg.image_size
+    t0 = time.perf_counter()
+    tr = seeded_trainer(stage, cfg, dev, torch.bfloat16, optim=optim, replacement_prob=prob)
+    n_train = sum(p.numel() for p in tr.state.trainable.values())
+    n_frozen = sum(p.numel() for p in tr.state.frozen.values())
+    print(f"[{tag}] built in {time.perf_counter() - t0:.1f} s: {n_train / 1e6:.1f} M trainable, "
+          f"{n_frozen / 1e9:.3f} G frozen parameters", flush=True)
+    frozen = {k: p.detach().cpu() for k, p in tr.state.frozen.items()}
+    watch = {k: p.detach().clone() for k, p in tr.state.trainable.items()
+             if k.split(".")[-2].endswith("_layer") or "proj_out" in k}
+    ref = to_device(make_batch(B, T_in, (H, W), seed=0), dev)
+    if stage == 1:
+        other = to_device(make_batch(B, T_out, (H, W), seed=1), dev)
+    else:
+        other = to_device(make_batch(B, T_out, (H, W), seed=1, with_audio=True,
+                                     audio_dim=cfg.audio_feature_dim), dev)
+    t0 = time.perf_counter()
+    m = tr.step(ref, other, ids[0])
+    torch.cuda.synchronize()
+    print(f"[{tag}] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms, loss "
+          f"{m['loss']:.5f}", flush=True)
+    counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, metrics = [], []
+    for bid in ids[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(tr.step(ref, other, bid))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    per = train_launches(cfg, stage, B, T_in, T_out)
+    expected = {k: v * len(times) for k, v in per.items()}
+    print(f"[{tag}] launches {launches} expected {expected} ({per} a step)", flush=True)
+    for i, (ms, mt) in enumerate(zip(times, metrics)):
+        extra = f", cache_iter {mt['cache_iter']:.0f}" if stage == 2 else ""
+        print(f"[{tag}] step {i}: {1e3 * ms:.1f} ms, loss {mt['loss']:.5f}, grad_norm "
+              f"{mt['grad_norm']:.4f}{extra}", flush=True)
+    mean_ms = 1e3 * sum(times) / len(times)
+    moved = sum(not torch.equal(p, tr.state.trainable[k]) for k, p in watch.items())
+    same = all(torch.equal(p.detach().cpu(), frozen[k]) for k, p in tr.state.frozen.items())
+    print(f"[{tag}] {mean_ms:.1f} ms a step (mean of {len(times)}), peak memory "
+          f"{peak / 2**30:.2f} GiB; {moved} of {len(watch)} watched trainable tensors moved; "
+          f"frozen ViT bit-identical: {same}; updates applied {tr.state.opt.count}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"{tag}: launches {launches} != {expected}")
+    if not all(torch.isfinite(torch.tensor([mt["loss"], mt["grad_norm"]])).all()
+               for mt in metrics):
+        raise AssertionError(f"{tag}: non-finite loss or gradient norm")
+    if moved == 0 or not same or tr.state.opt.count < 2:
+        raise AssertionError(f"{tag}: trainable parameters did not move or the frozen ViT changed")
+    if stage == 2 and [mt["cache_iter"] for mt in metrics] != [0.0, 1.0, 0.0]:
+        raise AssertionError(f"{tag}: the cache was not reused at batch 12")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -782,6 +1364,7 @@ def main():
 
     checks = [check_splat(dev), check_quad(dev), check_attention(dev), check_tiles(dev)]
     check_attention_stage1(dev)
+    checks += [check_tiles_bwd(dev), check_attention_bwd(dev)]
     check_small(dev)
     launches, state = run_rollout(dev)
     profile_rollout(*state)
@@ -789,9 +1372,14 @@ def main():
     check_small_stage1(dev)
     launches.update(run_reconstruction(dev))
     serve_from_reference(dev)
+    check_small_train(dev)
+    train = [run_train(dev, 1), run_train(dev, 2)]
+    for name in ("attention_bwd", "composite_tiles_bwd"):
+        launches[name] = sum(t[name] for t in train)
 
     # launches: S and Q from the serving rollout (phase 4), K1 and A from
-    # the reconstruction (phase 7); each path's counts are printed above
+    # the reconstruction (phase 7), K2 and A-bwd from the two training runs
+    # (phase 11); each path's counts are printed above
     sources = {"splat_segments": ("composite_segments", "splat_segments.cu",
                                   "audio_motion_avatar_tpu/ops/splat_pallas.py:503"),
                "quad_rows": ("quad_rows", "quad_rows.cu",
@@ -799,7 +1387,11 @@ def main():
                "attention": ("attention", "attention.cu",
                              "audio_motion_avatar_tpu/models/transformer.py:261"),
                "splat_tiles": ("composite_tiles", "splat_tiles.cu",
-                               "audio_motion_avatar_tpu/ops/splat_pallas.py:113")}
+                               "audio_motion_avatar_tpu/ops/splat_pallas.py:113"),
+               "splat_tiles_bwd": ("composite_tiles_bwd", "splat_tiles_bwd.cu",
+                                   "audio_motion_avatar_tpu/ops/splat_pallas.py:251"),
+               "attention_bwd": ("attention_bwd", "attention_bwd.cu",
+                                 "audio_motion_avatar_tpu/models/transformer.py:261")}
     line = []
     for c in checks:
         counter, src, replaces = sources[c["name"]]

@@ -1,6 +1,6 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on
+"""The port's six CUDA kernels against their plain PyTorch versions, on
 the card, at small and ragged shapes (chip_smoke.py holds them at the
-serving shapes). Every test needs a CUDA card and nvcc, and skips without
+main paths' shapes). Every test needs a CUDA card and nvcc, and skips without
 one. This file imports no JAX, so on a machine without it run it without
 the JAX test harness's conftest:
 
@@ -9,7 +9,11 @@ the JAX test harness's conftest:
 Tolerances: S and K1 1e-5 absolute (the kernels are built with
 --fmad=false and blend in the plain versions' order); Q bit-exact (a copy); A's bf16
 outputs against the plain version in fp32 on the same bf16 inputs: every
-|diff| <= 2^-7 |ref| + 2^-4 RMS(ref) (ops/attention.excess_error).
+|diff| <= 2^-7 |ref| + 2^-4 RMS(ref) (ops/attention.excess_error), and
+A-bwd's bf16 dQ / dK / dV against the fp32 plain backward under the same
+rule; K2 against its plain version at rtol 1e-4 (the JAX package's own
+tolerance for its backward kernel) and atol 1e-5 of the largest |ref| (the
+per-slot sums over a tile's 256 pixels are added in another order).
 """
 
 import dataclasses
@@ -176,3 +180,104 @@ def test_fp32_reconstruction_with_kernel_heads_raises(cuda):
     with pytest.raises(ValueError, match="bf16"):
         build_reconstructor(cfg, device=cuda,
                             smplx_model=smplx_ops.synthetic_model(seed=0, num_verts=300))
+
+
+def _tile_setup(cuda, K, window, F=3, N=400, W=128, H=96, seed=1):
+    rng = np.random.RandomState(seed)
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.randn(*shape) * s).astype(np.float32), device=cuda)
+
+    Km = torch.tensor([[70.0, 0, W / 2], [0, 70.0, H / 2], [0, 0, 1]], device=cuda)
+    E = torch.eye(4, device=cuda).repeat(F, 1, 1)
+    E[:, 2, 3] = torch.tensor([2.0, 2.5, 3.0][:F], device=cuda)
+    proj = project_gaussians(r(F, N, 3, s=0.4), r(F, N, 4), activate_scales(r(F, N, 3, s=0.3) - 2),
+                             activate_opacity(r(F, N, s=2.0)), torch.rand(F, N, 3, device=cuda),
+                             make_camera(Km.expand(F, 3, 3), E, W, H))
+    packed = torch.cat([st.pack_tile_params(
+        type(proj)(*(a[f] for a in proj)), W, H, K, window) for f in range(F)])
+    return packed, W // 16, (W // 16) * (H // 16)
+
+
+def _bwd_close(got, want):
+    return bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max())))
+
+
+@pytest.mark.parametrize("K,window", [(512, 4), (24, 8), (200, 4)])
+def test_tile_bwd_kernel_matches_plain(cuda, K, window):
+    """K2 on 3 views in one launch: empty and clamped tiles, K above and
+    below the 64-slot chunk, a seeded output gradient."""
+    packed, tx, T = _tile_setup(cuda, K, window)
+    g = torch.randn(packed.shape[0], 256, 3, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    before = st.composite_tiles_bwd.launches
+    got = st.composite_tiles_bwd(packed, g, tx, T)
+    want = st.composite_tiles_bwd_plain(packed, g, tx, T)
+    torch.cuda.synchronize()
+    assert st.composite_tiles_bwd.launches == before + 1
+    assert got.shape == packed.shape and torch.isfinite(got).all()
+    assert float(want.abs().max()) > 0
+    assert _bwd_close(got, want), float((got - want).abs().max())
+
+
+def test_composite_tiles_function_on_the_card(cuda):
+    """CompositeTiles launches K1 forward and K2 backward and gives the
+    CPU's gradient (both plain versions there)."""
+    packed, tx, T = _tile_setup(cuda, 64, 4, F=2)
+    g = torch.randn(packed.shape[0], 256, 3, device=cuda)
+    x = packed.clone().requires_grad_(True)
+    f0, b0 = st.composite_tiles.launches, st.composite_tiles_bwd.launches
+    (st.CompositeTiles.apply(x, tx, T) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (st.composite_tiles.launches, st.composite_tiles_bwd.launches) == (f0 + 1, b0 + 1)
+    xc = packed.cpu().requires_grad_(True)
+    (st.CompositeTiles.apply(xc, tx, T) * g.cpu()).sum().backward()
+    assert _bwd_close(x.grad.cpu(), xc.grad)
+
+
+def test_tile_bwd_wrapper_validates(cuda):
+    p = torch.zeros(2, 9, 4, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        st.composite_tiles_bwd(p, torch.zeros(2, 256, 3, dtype=torch.float16, device=cuda), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.composite_tiles_bwd(torch.zeros(2, 4, 9, device=cuda).transpose(1, 2),
+                               torch.zeros(2, 256, 3, device=cuda), 2)
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,masked", [
+    (1, 2, 9, 13, False),      # ragged: fewer queries and keys than a block
+    (2, 1, 130, 77, True),     # ragged edges, masks, one batch all masked
+    (1, 2, 64, 640, True),     # several key blocks
+    (2, 2, 200, 64, False),    # several query blocks over one key block
+])
+def test_attention_bwd_kernel_matches_plain(cuda, B, H, Sq, Skv, masked):
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def rnd(s):
+        return torch.randn(B, H, s, 64, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, k, v, dout = rnd(Sq), rnd(Skv), rnd(Skv), rnd(Sq)
+    mask = None
+    if masked:
+        lengths = torch.tensor([Skv // 3] + [0] * (B - 1), device=cuda)
+        mask = torch.arange(Skv, device=cuda)[None, :] < lengths[:, None]
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    f0, b0 = at.attention.launches, at.attention_bwd.launches
+    out = at.AttentionFunction.apply(qa, ka, va, 0.125, mask)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (at.attention.launches, at.attention_bwd.launches) == (f0 + 1, b0 + 1)
+    assert torch.equal(out, at.attention(q, k, v, 0.125, mask))
+    want = at.attention_bwd_plain(q.float(), k.float(), v.float(), 0.125, mask, dout.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), (qa.grad, ka.grad, va.grad), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        assert at.excess_error(got, ref) <= 1.0, (name, at.excess_error(got, ref))
+
+
+def test_attention_bwd_wrapper_validates(cuda):
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16, device=cuda)
+    stats = torch.zeros(1, 1, 8, 2, device=cuda)
+    with pytest.raises(ValueError, match="stats"):
+        at.attention_bwd(q, q, q, 0.125, None, q, stats.double(), q)
+    with pytest.raises(ValueError, match="dout"):
+        at.attention_bwd(q, q, q, 0.125, None, q, stats, q.float())
