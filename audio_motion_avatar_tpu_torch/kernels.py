@@ -51,6 +51,9 @@ KERNELS = {
     "splat_tiles_bwd": (
         "splat_tiles_bwd.cu", ("--fmad=false",),
         {"splat_tiles_bwd_launch": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)}),
+    "winograd": (
+        "winograd.cu", (),
+        {"winograd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

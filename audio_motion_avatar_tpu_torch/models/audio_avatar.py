@@ -62,7 +62,8 @@ class AudioDrivenAvatar(nn.Module):
             heads=cfg.audio_transformer_num_heads,
             audio_feature_dim=cfg.audio_feature_dim,
             compute_dtype=_compute_dtype(cfg.compute_dtype),
-            gelu_approx=cfg.gelu_approx, remat=cfg.audio_transformer_remat)
+            gelu_approx=cfg.gelu_approx, remat=cfg.audio_transformer_remat,
+            attn_impl=cfg.audio_attn_impl)
 
     @property
     def smpl_decoder(self) -> SMPLXDecoder:

@@ -85,7 +85,8 @@ class AudioTriplaneNet(nn.Module):
                  output_frames: int = 6, layers: int = 8, head_dim: int = 64,
                  heads: int = 8, audio_feature_dim: int = 768,
                  compute_dtype: Optional[torch.dtype] = None,
-                 gelu_approx: bool = False, remat: bool = False):
+                 gelu_approx: bool = False, remat: bool = False,
+                 attn_impl: str = "flash"):
         super().__init__()
         self.S_tri = 3 * triplane_resolution ** 2
         self.L = smpl_token_len
@@ -100,7 +101,7 @@ class AudioTriplaneNet(nn.Module):
             layers, heads, head_dim, feature_dim,
             context_dim=audio_feature_dim, dtype=compute_dtype,
             final_tail=self.S_tri + self.L, gelu_approx=gelu_approx,
-            remat=remat)
+            remat=remat, attn_impl=attn_impl)
 
     def forward(self, audio_features: torch.Tensor,
                 triplane_tokens: torch.Tensor, smpl_tokens: torch.Tensor):

@@ -6,15 +6,18 @@ reference YAML tree. `tiny()` is the scaled-down test profile and
 its inference entry points (its configs/build.py SERVING_PROFILE and
 SERVING_PROFILE_MODEL, copied here so the port imports nothing of it).
 
-Of the JAX package's execution knobs only the two remat switches are kept
+Of the JAX package's execution knobs the two remat switches are kept
 (`frames_scan_remat`, `audio_transformer_remat`, both on by default as
 there): under autograd the port checkpoints each renderer frame chunk and
 each audio transformer block (torch.utils.checkpoint), and forward-only
-calls ignore them. The others (scan unroll, the attention, splat and
-quad-row implementation selectors, slab sampling, the sparse penultimate
-level) have no counterpart in the port and are left out, so none can be
-set and then ignored. Of the render-path knobs, the renderer
-takes the serving values only and raises on others. The stage-1 fields
+calls ignore them. `audio_attn_impl` names the audio self-attention's
+kernel as in the JAX package (flash, flash2, splash, serve, hpack): all
+five compute the same function, kernel A's, and the port routes them
+there; a train step refuses the four forward-only names. The others (scan
+unroll, the splat and quad-row implementation selectors, slab sampling,
+the sparse penultimate level) have no counterpart in the port and are left
+out, so none can be set and then ignored. Of the render-path knobs, the
+renderer raises on the values it does not implement. The stage-1 fields
 (sapiens_encoder, the triplane encoder's transformers) describe the model
 the weights come from and are read by the stage-1 slice.
 """
@@ -59,7 +62,7 @@ class AvatarConfig:
     upsampler_sparse_max_tiles: int = 384
     upsampler_sparse_tile_px: int = 16
     upsampler_upconv: str = "poly"
-    upsampler_conv: str = "xla"
+    upsampler_conv: str = "xla"            # 'xla' | 'winograd' | 'winograd_gn'
     upsampler_norm: str = "group"
     sample_quad: bool = False
     # sapiens_encoder.yaml
@@ -79,6 +82,8 @@ class AvatarConfig:
     audio_transformer_head_dim: int = 64
     audio_transformer_num_heads: int = 8
     audio_feature_dim: int = 768
+    # 'flash' | 'flash2' | 'splash' | 'serve' | 'hpack' (all kernel A here)
+    audio_attn_impl: str = "flash"
     # ptv3_encoder.yaml
     ptv3_enc_channels: Tuple[int, ...] = (32, 64, 128, 256, 512)
     ptv3_enc_depths: Tuple[int, ...] = (2, 2, 2, 6, 2)

@@ -12,8 +12,10 @@ Two forms, as the JAX package's Renderer selects them:
   * default (dense upsampler, `sample_triplane_nhwc`): the full-resolution
     planes, sampled bilinearly; typically with the tile splat (kernel K1).
 splat_segmented picks the splat: kernel S, or the binned tile composite
-K1 (ops/splat_tiles.py). Other knob values (the 4-tap sparse sampler,
-Winograd convs, SH colours) raise. The forward returns (frames, gaussians)
+K1 (ops/splat_tiles.py). upsampler_conv picks the upsampler's ResBlock
+convs: direct ('xla'), Winograd K9a ('winograd') or, with the group norm,
+K9b fused with it ('winograd_gn'). Other knob values (the 4-tap sparse
+sampler, SH colours) raise. The forward returns (frames, gaussians)
 as the JAX renderer does. Under autograd with cfg.frames_scan_remat (the
 JAX package's nn.remat of its frame scan), each frame chunk is recomputed in
 the backward (torch.utils.checkpoint) instead of keeping its upsampler,
@@ -77,15 +79,13 @@ def _check_supported(cfg) -> None:
         bad["sample_quad"] = cfg.sample_quad   # the sparse path samples by quads
     if cfg.upsampler_upconv not in ("dilated", "poly"):
         bad["upsampler_upconv"] = cfg.upsampler_upconv
-    if cfg.upsampler_conv != "xla":
-        bad["upsampler_conv"] = cfg.upsampler_conv
     if not cfg.rgb:
         bad["rgb"] = cfg.rgb
     if bad:
         raise NotImplementedError(
             "the port renders the serving form (upsampler_sparse and "
             "sample_quad) or the default form (neither), with the "
-            "dilated / poly up-convolution, direct convs and RGB colours; "
+            "dilated / poly up-convolution and RGB colours; "
             f"got {bad}")
 
 
@@ -101,7 +101,7 @@ class Renderer(nn.Module):
             sparse_final=cfg.upsampler_sparse,
             sparse_max_tiles=cfg.upsampler_sparse_max_tiles,
             sparse_tile_px=cfg.upsampler_sparse_tile_px,
-            norm_mode=cfg.upsampler_norm)
+            norm_mode=cfg.upsampler_norm, conv_impl=cfg.upsampler_conv)
         self.point_refiner = point_refiner
         if point_refiner is not None:
             self.refine_mlp = nn.Sequential(

@@ -8,6 +8,12 @@ LayerNorm / GroupNorm statistics are taken in fp32. Norm epsilons are
 flax's 1e-6 (torch defaults to 1e-5). Self-attention with head width 64
 runs through kernel A (ops/attention.py), in bf16 on the card, and under
 autograd through its Function (kernel A-bwd for the gradients).
+
+The JAX package names its self-attention kernels (`attn_impl`): the stock
+flash kernel, its base-2 clone flash2, the stock splash kernel (FullMask,
+padding by segment ids, q pre-scaled) and its own serve / hpack kernels.
+Each computes softmax((q scale) k^T) v over the valid keys, kernel A's
+function, so every name runs kernel A here; only 'flash' has a backward.
 """
 
 from __future__ import annotations
@@ -20,6 +26,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import KERNEL_HEAD_DIM, attention_autograd, dense_attention
+
+ATTN_IMPLS = ("flash", "flash2", "splash", "serve", "hpack")
+FORWARD_ONLY_ATTN_IMPLS = ("flash2", "splash", "serve", "hpack")
+
+
+def check_attn_impl(name: str) -> str:
+    """An attention implementation name of the JAX package, or raise."""
+    if name not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {name!r} (one of {ATTN_IMPLS})")
+    return name
 
 
 def linear(x: torch.Tensor, layer: nn.Linear,
@@ -159,17 +175,19 @@ class Transformer1D(nn.Module):
     blocks, project back, residual add. final_tail: the output covers only
     the last final_tail positions (the last block computes just those).
     remat: under autograd each block is recomputed in the backward
-    (torch.utils.checkpoint) instead of keeping its activations."""
+    (torch.utils.checkpoint) instead of keeping its activations. attn_impl:
+    the self-attention's name in the JAX package (every one is kernel A)."""
 
     def __init__(self, num_layers: int, heads: int, head_dim: int,
                  in_channels: int, context_dim: Optional[int] = None,
                  norm_num_groups: int = 32,
                  dtype: Optional[torch.dtype] = None,
                  final_tail: Optional[int] = None, gelu_approx: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, attn_impl: str = "flash"):
         super().__init__()
         inner = heads * head_dim
         self.dtype, self.final_tail, self.remat = dtype, final_tail, remat
+        self.attn_impl = check_attn_impl(attn_impl)
         self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.num_layers = num_layers

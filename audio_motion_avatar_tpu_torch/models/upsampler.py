@@ -12,6 +12,14 @@ transposed conv with the spatially flipped kernel.
 Norms: 'affine' (per-channel scale / bias, the inference form of the
 reference BatchNorm once running stats are folded) or 'group' (GroupNorm(32),
 eps 1e-6, statistics in fp32). Params fp32; convs run in the compute dtype.
+
+The ResBlocks' 3x3 convs (conv_impl, the JAX package's selection rules):
+'xla' runs them direct; 'winograd' through kernel K9a (ops/winograd.py),
+SAME on the dense levels, VALID on the sparse final level's tile windows;
+'winograd_gn' with the group norm on a dense level fuses each GroupNorm +
+relu into its conv (kernel K9b on gn_affine's folded affine) and acts as
+'winograd' elsewhere. A shape the kernels do not take runs the direct twin
+(ops/winograd.conv3x3). The parameters are the same in every case.
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import winograd
 from ..ops.splat_segmented import top_k_lower_index
+
+CONV_IMPLS = ("xla", "winograd", "winograd_gn")
 
 
 class SparseTriplanes(NamedTuple):
@@ -171,11 +182,15 @@ class _NormParams(nn.Module):
 
 class ResBlock(nn.Module):
     def __init__(self, channels: int, dtype: Optional[torch.dtype] = None,
-                 groups: int = 32, norm_mode: str = "group"):
+                 groups: int = 32, norm_mode: str = "group",
+                 conv_impl: str = "xla"):
         super().__init__()
         if norm_mode not in ("group", "affine"):
             raise ValueError(f"norm_mode {norm_mode!r}")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl {conv_impl!r} (one of {CONV_IMPLS})")
         self.dtype, self.groups, self.norm_mode = dtype, groups, norm_mode
+        self.conv_impl = conv_impl
         self.norm1 = _NormParams(channels)
         self.conv1 = nn.Conv2d(channels, channels, 3)
         self.norm2 = _NormParams(channels)
@@ -189,8 +204,25 @@ class ResBlock(nn.Module):
                          norm.weight, norm.bias, eps=1e-6)
         return torch.relu(_cast(y.permute(0, 2, 3, 1), self.dtype))
 
-    def _conv(self, x, conv: nn.Conv2d, padding: int):
-        return conv_nhwc(x, conv.weight, conv.bias, padding, self.dtype)
+    def _conv(self, x, conv: nn.Conv2d, padding: int, gn=None):
+        """conv3x3 of x (N, H, W, C), SAME (padding 1) or VALID (0); gn =
+        (a, c): conv3x3(relu(a x + c)) (winograd_gn only)."""
+        if self.conv_impl == "xla":
+            return conv_nhwc(x, conv.weight, conv.bias, padding, self.dtype)
+        w = _cast(conv.weight, self.dtype).permute(2, 3, 1, 0)     # HWIO
+        return winograd.conv3x3(_cast(x, self.dtype), w, _cast(conv.bias, self.dtype),
+                                "SAME" if padding == 1 else "VALID", gn)
+
+    def _gn_relu_conv(self, x, norm: _NormParams, conv: nn.Conv2d):
+        """Dense conv3x3(relu(GN(x))), the GroupNorm folded into a per-image
+        affine and fused into the Winograd window assembly."""
+        gn = winograd.gn_affine(x, norm.weight, norm.bias, self.groups)
+        return self._conv(x, conv, 1, gn)
+
+    def _fused_gn(self, x: torch.Tensor) -> bool:
+        C = x.shape[-1]
+        return (self.conv_impl == "winograd_gn" and self.norm_mode == "group"
+                and winograd.supports_winograd(x.shape, C, C, "SAME"))
 
     def forward(self, x: torch.Tensor,
                 sparse_ctx: Optional[SparseCtx] = None) -> torch.Tensor:
@@ -198,6 +230,10 @@ class ResBlock(nn.Module):
         windows -> (F, cap, T, T, C) interiors."""
         if sparse_ctx is not None:
             return self._sparse(x, sparse_ctx)
+        if self._fused_gn(x):
+            h = self._gn_relu_conv(x, self.norm1, self.conv1)
+            h = self._gn_relu_conv(h, self.norm2, self.conv2)
+            return x + h
         h = self._conv(self._norm_relu(x, self.norm1), self.conv1, 1)
         h = self._conv(self._norm_relu(h, self.norm2), self.conv2, 1)
         return x + h
@@ -231,12 +267,14 @@ class ResBlock(nn.Module):
 
 class UpsampleBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: Optional[torch.dtype] = None, norm_mode: str = "group"):
+                 dtype: Optional[torch.dtype] = None, norm_mode: str = "group",
+                 conv_impl: str = "xla"):
         super().__init__()
         self.dtype = dtype
         self.conv_weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.conv_bias = nn.Parameter(torch.zeros(out_channels))
-        self.res = ResBlock(out_channels, dtype=dtype, norm_mode=norm_mode)
+        self.res = ResBlock(out_channels, dtype=dtype, norm_mode=norm_mode,
+                            conv_impl=conv_impl)
 
     def forward(self, x: torch.Tensor,
                 sparse_ctx: Optional[SparseCtx] = None) -> torch.Tensor:
@@ -265,14 +303,15 @@ class TriplaneUpsampler(nn.Module):
     def __init__(self, feature_dim: int = 256, num_blocks: int = 4,
                  dtype: Optional[torch.dtype] = None,
                  sparse_final: bool = False, sparse_max_tiles: int = 384,
-                 sparse_tile_px: int = 16, norm_mode: str = "group"):
+                 sparse_tile_px: int = 16, norm_mode: str = "group",
+                 conv_impl: str = "xla"):
         super().__init__()
         self.feature_dim, self.num_blocks, self.dtype = feature_dim, num_blocks, dtype
         self.sparse_final = sparse_final
         self.sparse_max_tiles, self.sparse_tile_px = sparse_max_tiles, sparse_tile_px
         for i in range(num_blocks):
             self.add_module(f"up_{i}", UpsampleBlock(feature_dim, feature_dim,
-                                                     dtype, norm_mode))
+                                                     dtype, norm_mode, conv_impl))
         self.skip_proj = nn.Conv2d(feature_dim, feature_dim, 1)
 
     def _skip_proj(self, skip):

@@ -12,7 +12,7 @@ does.
 
 Geometry (SMPL-X FK/LBS, projection, splatting) runs in fp32 with TF32 off;
 the transformer, refiner and upsampler stacks run in cfg.compute_dtype
-(bf16 on the card: kernel A takes bf16 operands).
+(bf16 on the card: kernels A, K9a and K9b take bf16 operands).
 """
 
 from __future__ import annotations
@@ -61,21 +61,28 @@ class Rollout:
 
 def check_kernel_dtype(cfg: AvatarConfig, device: torch.device,
                        stage1: bool) -> None:
-    """Kernel A takes bf16 operands: on the card, a configuration whose
-    compute dtype is not bf16 may not have 64-wide heads in the stacks that
-    run in it (the audio transformer, the PTv3 refiner and, with stage1,
-    the SMPL-X predictor and the fusion transformer; the ViT runs in bf16
-    whatever the config says)."""
+    """Kernels A, K9a and K9b take bf16 operands: on the card, a
+    configuration whose compute dtype is not bf16 may not have 64-wide heads
+    in the stacks that run in it (the audio transformer, the PTv3 refiner
+    and, with stage1, the SMPL-X predictor and the fusion transformer; the
+    ViT runs in bf16 whatever the config says), nor Winograd upsampler convs
+    at a width the kernels take (a multiple of 128)."""
+    if device.type != "cuda" or cfg.compute_dtype == "bfloat16":
+        return
     widths = [cfg.audio_transformer_head_dim] + [
         c // h for c, h in zip(cfg.ptv3_enc_channels + cfg.ptv3_dec_channels,
                                cfg.ptv3_enc_heads + cfg.ptv3_dec_heads)]
     if stage1:
         widths += [cfg.smplx_transformer_head_dim, cfg.cross_transformer_head_dim]
-    if device.type == "cuda" and cfg.compute_dtype != "bfloat16" and \
-            KERNEL_HEAD_DIM in widths:
+    if KERNEL_HEAD_DIM in widths:
         raise ValueError(
             f"head width {KERNEL_HEAD_DIM} runs through kernel A, which takes "
             f"bf16 operands: build with dtype=torch.bfloat16 "
+            f"(compute_dtype is {cfg.compute_dtype!r})")
+    if cfg.upsampler_conv != "xla" and cfg.triplane_feature_dim % 128 == 0:
+        raise ValueError(
+            f"upsampler_conv={cfg.upsampler_conv!r} runs the Winograd kernels, which "
+            f"take bf16 operands: build with dtype=torch.bfloat16 "
             f"(compute_dtype is {cfg.compute_dtype!r})")
 
 

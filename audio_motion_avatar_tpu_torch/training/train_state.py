@@ -34,6 +34,8 @@ from typing import Dict, Iterable, Optional
 import torch
 from torch import nn
 
+from ..models.transformer import FORWARD_ONLY_ATTN_IMPLS
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
@@ -181,13 +183,18 @@ class TrainState:
 
 
 def check_differentiable(cfg) -> None:
-    """Refuse, when a training step is built, the render options whose
-    kernels are forward-only: the segmented splat (kernel S) and the sparse
-    upsampler's quad sampling (kernel Q) have no backward."""
+    """Refuse, when a training step is built, the options that select a
+    forward-only kernel: the segmented splat (kernel S) and the sparse
+    upsampler's quad sampling (kernel Q) have no backward, nor have the
+    JAX package's forward-only attention kernels (audio_attn_impl flash2,
+    splash, serve, hpack). The Winograd convs train (their backward is the
+    direct conv's)."""
     bad = [name for name in ("splat_segmented", "upsampler_sparse", "sample_quad")
            if getattr(cfg, name)]
+    if cfg.audio_attn_impl in FORWARD_ONLY_ATTN_IMPLS:
+        bad.append(f"audio_attn_impl={cfg.audio_attn_impl}")
     if bad:
         raise ValueError(
-            f"training needs a differentiable render path: {', '.join(bad)} "
-            "selects a forward-only kernel (the serving form); train with the "
-            "default form (tile splat, dense upsampler)")
+            f"training needs a differentiable path: {', '.join(bad)} selects a "
+            "forward-only kernel (a serving option); train with the default "
+            "form (tile splat, dense upsampler, audio_attn_impl flash)")

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compiles the six CUDA kernels from audio_motion_avatar_tpu_torch/csrc
+  1. build   — compiles the seven CUDA sources from audio_motion_avatar_tpu_torch/csrc
                (one nvcc per source, in parallel) into build/kernels/;
   2. kernels — calls each kernel's wrapper at the serving path's shapes and
                holds it against its plain PyTorch version on the same inputs:
@@ -33,6 +33,13 @@ Phases (any failure exits non-zero):
                which must reject a backward that drops the ragged last keys
                or ignores the mask; times beside the plain versions, the
                bounds and (A-bwd) scaled_dot_product_attention's backward;
+               K9a (Winograd conv, the serving chunk's five conv shapes) and
+               K9b (GroupNorm-fused, at 512^2 and 256^2), bf16, against their
+               plain versions under ops/winograd.excess_error, a rule that
+               must reject a kernel dropping the halo pair-row, rounding its
+               input transform once or (K9b) leaving the padded border to the
+               affine; timed beside the plain versions, the bounds and
+               F.conv2d (for K9b the chain relu(a x + c), F.conv2d);
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -49,6 +56,11 @@ Phases (any failure exits non-zero):
                decoder, renderer), then the whole request under
                torch.profiler: the device's busy share and the 15 kernels
                that take the most device time;
+  4b. serve, Winograd + splash — phase 4 with upsampler_conv='winograd' (K9a)
+               and audio_attn_impl='splash' (kernel A): the same checks and
+               launch counts (16 K9a, 52 A a request), then its frames against
+               phase 4's direct-conv rollout on the same inputs and weights:
+               mean|diff| <= 1e-2, PSNR >= 40 dB; then profiled as in 5 (5b);
   6. small stage 1 — a tiny reconstruction (reference view + 3 novel views)
                on the card against the CPU: fp32 with the tiny heads (K1), the
                image tokens of the CPU's ViT fed to both (the ViT runs in bf16
@@ -62,6 +74,10 @@ Phases (any failure exits non-zero):
                views: one warm-up and 3 timed requests; ms per request, stage
                times, peak memory, launches of K1 and A against the count the
                config implies, finite and non-blank frames;
+  7b. reconstruct, winograd_gn — phase 7 with upsampler_conv='winograd_gn'
+               (K9b: GroupNorm fused into every dense conv), 1 warm-up and 2
+               requests; launches as the config implies, frames against phase
+               7's within 1e-2 / 40 dB;
   8. serve from a reference — the serving model with its stage-1 stack: the
                tokens of 2 streams' 2 reference frames (the stage-1 pass, render
                off), then one rollout request from them; frames checked as in 4.
@@ -83,9 +99,13 @@ Phases (any failure exits non-zero):
                1296x2304, B = 2, T_in = 2, T_out = 6, lr 1e-4, clip 1.0, both
                remat knobs: 1 warm-up + 3 steps through Stage2TrainLoop, one
                reusing the prediction cache; the same checks.
-Then one {"kernels": [...]} line, the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}. Takes several minutes on one
-H100, the kernels' build included.
+ 10b. train stage 1, winograd_gn — phase 10 with upsampler_conv='winograd_gn',
+               accumulate 1: 1 warm-up + 2 micro-steps; the same checks (K9b
+               16 a micro-step, remat recompute included), ms beside phase 10's.
+Each phase prints its seconds. Then one {"kernels": [...]} line (nine
+kernels: splash is kernel A under the JAX package's splash name), the
+card's name and power limit, and as the last line {"ok": true, "device":
+{...}}. Takes several minutes on one H100, the kernels' build included.
 """
 
 import contextlib
@@ -112,14 +132,29 @@ SPLAT_OPS_PER_PAIR = 27
 SPLAT_BWD_OPS_PER_PAIR = 27 + 66
 
 
+def upsampler_launches(cfg):
+    """(K9a, K9b) launches of one dense upsampler pass (the default render
+    form): two ResBlock convs a level, every level's shape taken by the
+    kernels when the width is a multiple of 128; 'winograd_gn' with the
+    group norm fuses all of them (K9b)."""
+    n = 2 * cfg.num_upsample_blocks
+    if cfg.upsampler_conv == "xla" or cfg.triplane_feature_dim % 128:
+        return 0, 0
+    if cfg.upsampler_conv == "winograd_gn" and cfg.upsampler_norm == "group":
+        return 0, n
+    return n, 0
+
+
 def train_launches(cfg, stage, B, T_in, T_out):
     """Kernel launches one train micro-step implies, the remat recompute
     included: {attention, attention_bwd, composite_tiles,
-    composite_tiles_bwd}. Stage 1: B x T_in reference frames rendered under
-    autograd and T_out test views (one composite launch for all). Stage 2:
-    the stage-1 pass over B x T_in reference frames without autograd (its
-    render included), then the rollout of B x T_out frames. A 64-wide head
-    runs kernel A; the ViT's always without autograd."""
+    composite_tiles_bwd, winograd_conv3x3, winograd_conv3x3_gn_relu}.
+    Stage 1: B x T_in reference frames rendered under autograd and T_out
+    test views (one composite launch for all). Stage 2: the stage-1 pass
+    over B x T_in reference frames without autograd (its render included),
+    then the rollout of B x T_out frames. A 64-wide head runs kernel A; the
+    ViT's always without autograd. Each frame chunk rendered is one
+    upsampler pass (the Winograd convs' backward is the direct conv's)."""
     def wide(head_dim):
         return head_dim == 64
 
@@ -134,19 +169,24 @@ def train_launches(cfg, stage, B, T_in, T_out):
         F = cfg.frames_per_chunk
         return frames // F if F > 0 and frames % F == 0 else frames
 
+    k9a, k9b = upsampler_launches(cfg)
     if stage == 1:
         ref = chunks(B * T_in)
         return {"attention": vit + pred + fus + dec0 * ref * remat_f,
                 "attention_bwd": pred + fus + dec0 * ref,
                 "composite_tiles": ref * remat_f + 1,
-                "composite_tiles_bwd": ref + 1}
+                "composite_tiles_bwd": ref + 1,
+                "winograd_conv3x3": k9a * ref * remat_f,
+                "winograd_conv3x3_gn_relu": k9b * ref * remat_f}
     audio = cfg.audio_transformer_layers * T_out if wide(cfg.audio_transformer_head_dim) else 0
     remat_a = 2 if cfg.audio_transformer_remat else 1
     ref, out = chunks(B * T_in), chunks(B * T_out)
     return {"attention": vit + pred + fus + dec0 * ref + audio * remat_a + dec0 * out * remat_f,
             "attention_bwd": audio + dec0 * out,
             "composite_tiles": ref + out * remat_f,
-            "composite_tiles_bwd": out}
+            "composite_tiles_bwd": out,
+            "winograd_conv3x3": k9a * (ref + out * remat_f),
+            "winograd_conv3x3_gn_relu": k9b * (ref + out * remat_f)}
 
 
 def time_ms(fn, iters, warmup=1):
@@ -571,6 +611,149 @@ def check_attention_bwd(dev):
     return line
 
 
+# (kernel, images, size, padding, the case the kernels line reports): K9a at
+# the serving path's convs of one 6-frame chunk (18 planes; 256 tiles x 18
+# planes = 4608 windows on the sparse final level), K9b at the
+# reconstruction's 512^2 level (3 planes) and at 256^2; the line reports
+# K9a at the largest dense conv and K9b at 512^2
+WINOGRAD_CASES = [("K9a", 18, 64, "SAME", False), ("K9a", 18, 128, "SAME", False),
+                  ("K9a", 18, 256, "SAME", True), ("K9a", 4608, 20, "VALID", False),
+                  ("K9a", 4608, 18, "VALID", False), ("K9b", 3, 512, "SAME", True),
+                  ("K9b", 18, 256, "SAME", False)]
+
+
+def check_winograd(dev):
+    """K9a at the serving path's shapes (per frame chunk of 6 frames x 3
+    planes: the dense levels' SAME convs at 64^2, 128^2, 256^2; the sparse
+    final level's VALID convs on 256 tiles' 20^2 and 18^2 windows) and K9b
+    at the reconstruction's 512^2 level and at 256^2, C = K = 256, bf16:
+    each held against its plain version on the same inputs under
+    ops/winograd.excess_error (every |diff| <= 2^-7 |ref| + 2^-8 RMS(ref);
+    mean |diff| <= 1e-2 of the plain version's mean distance from
+    F.conv2d), a rule that must reject a kernel dropping the halo pair-row,
+    one rounding its input transform once and (K9b) one that leaves the
+    padded border to the affine. Timed with CUDA events beside the plain
+    version, the bound (the 16 products' 2 * 16 * tiles * C * K operations
+    at 989 TFLOP/s, or the bytes) and F.conv2d (cuDNN, bf16, TF32 off; for
+    K9b the chain relu(a x + c) then F.conv2d, no single call computing
+    it). Returns the kernels-line entries of K9a and K9b."""
+    import torch
+    import torch.nn.functional as Fn
+    from audio_motion_avatar_tpu_torch.ops import winograd as W
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    C = K = 256
+    w = (torch.randn(3, 3, C, K, device=dev, generator=g) / (9 * C) ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(K, device=dev, generator=g)).to(torch.bfloat16)
+    w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    out, worst = {}, {}
+    for kern, N, S, padding, in_line in WINOGRAD_CASES:
+        x = torch.randn(N, S, S, C, device=dev, generator=g).to(torch.bfloat16)
+        if kern == "K9b":
+            a = 1.0 + 0.3 * torch.randn(N, C, device=dev, generator=g)
+            c = 0.3 * torch.randn(N, C, device=dev, generator=g)
+            fn = lambda: W.winograd_conv3x3_gn_relu(x, w, b, a, c, padding)   # noqa: E731
+            plain = lambda: W.winograd_conv3x3_gn_relu_plain(x, w, b, a, c, padding)   # noqa: E731
+
+            def lib():
+                h = torch.relu(x.float() * a[:, None, None, :] + c[:, None, None, :]).to(x.dtype)
+                return Fn.conv2d(h.permute(0, 3, 1, 2), w_lib, b, padding=1).permute(0, 2, 3, 1)
+            wrongs = [("leaves the border to the affine",
+                       lambda: winograd_border_not_zeroed(x, w, b, a, c)),
+                      ("rounds its input transform once",
+                       lambda: winograd_single_rounding(x, w, b, padding, (a, c)))]
+            extra_bytes = 2 * a.numel() * 4
+        else:
+            fn = lambda: W.winograd_conv3x3(x, w, b, padding)   # noqa: E731
+            plain = lambda: W.winograd_conv3x3_plain(x, w, b, padding)   # noqa: E731
+
+            def lib():
+                return Fn.conv2d(x.permute(0, 3, 1, 2), w_lib, b,
+                                 padding=1 if padding == "SAME" else 0).permute(0, 2, 3, 1)
+            wrongs = [("drops the halo pair-row", lambda: winograd_drop_halo(x, w, b, padding)),
+                      ("rounds its input transform once",
+                       lambda: winograd_single_rounding(x, w, b, padding))]
+            extra_bytes = 0
+        got, ref, direct = fn(), plain(), lib()
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        excess, mean = W.excess_error(got, ref, direct)
+        wrong_read = []
+        for name, wrong in wrongs:
+            we, wm = W.excess_error(wrong(), ref, direct)
+            wrong_read.append(f"a version that {name}: {we:.3f} / {wm:.3f}")
+            if not (we > 1.0 or wm > 1.0):
+                raise AssertionError(f"the {kern} rule at {N}x{S}^2 {padding} does not reject "
+                                     f"a version that {name}")
+        torch.cuda.empty_cache()
+        Hh, Wh = W._tiles(x.shape, w.shape, padding)
+        tiles = N * Hh * Wh
+        nbytes = 2 * (x.numel() + w.numel() + got.numel()) + 4 * K + extra_bytes
+        bound_ms, by = bound(2.0 * 16 * tiles * C * K, PEAK_BF16_FLOPS, nbytes)
+        ms = time_ms(fn, 10)
+        plain_ms = time_ms(plain, 2)
+        lib_ms = time_ms(lib, 10)
+        shape = f"({N}, {S}^2, {C}) {padding}"
+        print(f"[kernels] {kern} {'winograd_gn' if kern == 'K9b' else 'winograd'} {shape} "
+              f"bf16: max|diff|={err:.3e} against the plain version; excess {excess:.3f}, "
+              f"mean {mean:.3f} (tol 1 each); {'; '.join(wrong_read)}; {ms:.4f} ms "
+              f"({2.0 * 16 * tiles * C * K / ms / 1e9:.1f} TFLOP/s of the 16 products), "
+              f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({by}; bytes "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f} ms), "
+              f"{'relu(a x + c) then F.conv2d (chain)' if kern == 'K9b' else 'F.conv2d'} "
+              f"{lib_ms:.4f} ms", flush=True)
+        if not (excess <= 1.0 and mean <= 1.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"kernel {kern} disagrees with its plain version at {shape}: "
+                                 f"excess {excess}, mean {mean}")
+        worst[kern] = max(worst.get(kern, 0.0), err)
+        if in_line:
+            out[kern] = {"name": "winograd_gn" if kern == "K9b" else "winograd",
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": by, "library_ms": lib_ms, "shape": shape + " bf16"}
+        del x, got, ref, direct
+        torch.cuda.empty_cache()
+    return [dict(out[k], err=worst[k]) for k in ("K9a", "K9b")]
+
+
+def winograd_single_rounding(x, w, b, padding, gn=None):
+    """K9a (gn None) or K9b broken on purpose: the input transform taken in
+    fp32 from the bf16 window and rounded once, not twice (the plain core on
+    the fp32 window, the products taking it in U's bf16)."""
+    from audio_motion_avatar_tpu_torch.ops import winograd as W
+    Hh, Wh = W._tiles(x.shape, w.shape, padding)
+    xn = x if gn is None else W._affine_relu(x, *gn).to(x.dtype)
+    u = W.transform_kernel(w).to(x.dtype)
+    return W._wino_plain(W._pad(xn, padding).float(), u, b.float(), Hh, Wh).to(x.dtype)
+
+
+def winograd_drop_halo(x, w, b, padding, strip=8):
+    """K9a broken on purpose: the tile row that ends each strip of `strip`
+    tile rows reads zeros for the last pair-row of its window (the pair-row
+    below the strip, the TPU kernel's halo block)."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import winograd as W
+    Hh, Wh = W._tiles(x.shape, w.shape, padding)
+    xp = W._pad(x, padding)
+    u = W.transform_kernel(w).to(x.dtype)
+    last = torch.arange(strip - 1, Hh, strip, device=x.device)
+    cut = xp.clone()
+    cut[:, torch.cat([2 * last + 2, 2 * last + 3])] = 0
+    out = W._wino_plain(xp, u, b.float(), Hh, Wh)
+    rows = torch.cat([2 * last, 2 * last + 1])
+    out[:, rows] = W._wino_plain(cut, u, b.float(), Hh, Wh)[:, rows]
+    return out
+
+
+def winograd_border_not_zeroed(x, w, b, a, c):
+    """K9b (SAME) broken on purpose: the padded border goes through the
+    affine too and reads relu(c) instead of 0."""
+    from audio_motion_avatar_tpu_torch.ops import winograd as W
+    Hh, Wh = W._tiles(x.shape, w.shape, "SAME")
+    xp = W._affine_relu(W._pad(x, "SAME"), a, c).to(x.dtype)
+    u = W.transform_kernel(w).to(x.dtype)
+    return W._wino_plain(xp, u, b.float(), Hh, Wh)
+
+
 def tame_seeded_weights(model):
     """Seeded weights stand in for a checkpoint: keep the decoded body
     upright and near the origin (random root rotations and translations
@@ -645,24 +828,29 @@ def check_small(dev):
         raise AssertionError("tiny bf16 rollout on the card disagrees with the CPU")
 
 
-def run_rollout(dev, requests=3):
+def run_rollout(dev, requests=3, tag="rollout", **knobs):
+    """The full-width bf16 serving rollout (knobs: config overrides, e.g.
+    upsampler_conv and audio_attn_impl): one warm-up and `requests` timed
+    requests. Returns the launches and (rollout, tokens, first request)."""
     import numpy as np
     import torch
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
     from audio_motion_avatar_tpu_torch.ops import triplane as tp
+    from audio_motion_avatar_tpu_torch.ops import winograd as W
     from audio_motion_avatar_tpu_torch.serve import build_rollout, serve, synthetic_inputs
     from audio_motion_avatar_tpu_torch.weights import perturb_heads
 
     cfg = serving_config(AvatarConfig(), image_size=(512, 512),
-                         upsampler_norm="affine")
+                         upsampler_norm="affine", **knobs)
     t0 = time.perf_counter()
     roll = build_rollout(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     perturb_heads(roll.model, seed=1, std=1e-2)
     tame_seeded_weights(roll.model)
     tri, smpl, audio, cams = synthetic_inputs(roll.model.cfg, 2, dev, seed=0)
-    print(f"[rollout] built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[{tag}] built in {time.perf_counter() - t0:.1f} s ({knobs or 'direct convs, flash'})",
+          flush=True)
     rng = np.random.RandomState(1)
 
     def request():
@@ -672,9 +860,9 @@ def run_rollout(dev, requests=3):
     t0 = time.perf_counter()
     list(serve(roll, tri, smpl, [(audio, cams)]))
     torch.cuda.synchronize()
-    print(f"[rollout] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
+    print(f"[{tag}] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
           flush=True)
-    counters = (at.attention, tp.quad_rows, ss.composite_segments)
+    counters = (at.attention, tp.quad_rows, ss.composite_segments, W.winograd_conv3x3)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -694,12 +882,15 @@ def run_rollout(dev, requests=3):
     B, T_out = rendered.shape[:2]
     n_chunks = (B * T_out) // mcfg.frames_per_chunk
     dec0_d = mcfg.ptv3_dec_channels[0] // mcfg.ptv3_dec_heads[0]
+    # K9a: every ResBlock conv of a chunk's upsampler pass (the dense
+    # levels' and the sparse final level's; the affine norm fuses nothing)
     per_request = {
         "attention": mcfg.audio_transformer_layers * T_out
         + (mcfg.ptv3_dec_depths[0] * n_chunks if dec0_d == 64 else 0),
-        "quad_rows": n_chunks, "composite_segments": n_chunks}
+        "quad_rows": n_chunks, "composite_segments": n_chunks,
+        "winograd_conv3x3": upsampler_launches(mcfg)[0] * n_chunks}
     expected = {k: v * requests for k, v in per_request.items()}
-    print(f"[rollout] launches {launches} expected {expected}", flush=True)
+    print(f"[{tag}] launches {launches} expected {expected}", flush=True)
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
     for i, fr in enumerate(frames):
@@ -707,19 +898,19 @@ def run_rollout(dev, requests=3):
             raise AssertionError(f"request {i}: bad frames {tuple(fr.shape)}")
         std = fr.float().reshape(B * T_out, -1).std(dim=1)
         white = float((fr > 0.999).float().mean())
-        print(f"[rollout] request {i}: {1e3 * times[i]:.1f} ms, per-frame std "
+        print(f"[{tag}] request {i}: {1e3 * times[i]:.1f} ms, per-frame std "
               f"min {float(std.min()):.4f} max {float(std.max()):.4f}, "
               f"white share {white:.4f}", flush=True)
         if not (std > 0.01).all() or white >= 1.0:
             raise AssertionError(f"request {i}: blank frames (std {std.tolist()})")
     mean_s = sum(times) / len(times)
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"[rollout] fps {B * T_out / mean_s:.2f} (= {B * T_out} / "
+    print(f"[{tag}] fps {B * T_out / mean_s:.2f} (= {B * T_out} / "
           f"{1e3 * mean_s:.1f} ms), peak memory {peak / 2**30:.2f} GiB", flush=True)
     return launches, (roll, tri, smpl, reqs[0])
 
 
-def profile_rollout(roll, tri, smpl, req):
+def profile_rollout(roll, tri, smpl, req, tag="profile"):
     """Where one request's time goes: host-clock time of each stage of the
     rollout, run one after another with a synchronize between them, then
     one whole request under torch.profiler: the device's busy share (sum of
@@ -746,7 +937,7 @@ def profile_rollout(roll, tri, smpl, req):
         pred, ms_dec = timed(lambda: reshape_params(model.smpl_decoder(
             out_smpl.reshape((B * T,) + out_smpl.shape[2:])), (B, T)))
         _, ms_render = timed(lambda: model.renderer(roll.statics, out_tri, cams, pred))
-    print(f"[profile] stages: audio rollout {ms_audio:.1f} ms, SMPL-X decoder "
+    print(f"[{tag}] stages: audio rollout {ms_audio:.1f} ms, SMPL-X decoder "
           f"{ms_dec:.1f} ms, renderer {ms_render:.1f} ms", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -755,14 +946,31 @@ def profile_rollout(roll, tri, smpl, req):
     dev_us = {e.key: (e.self_device_time_total, e.count) for e in kernels}
     busy = sum(t for t, _ in dev_us.values()) / 1e3
     if busy == 0.0:
-        print("[profile] the profiler recorded no device time: busy share not "
+        print(f"[{tag}] the profiler recorded no device time: busy share not "
               "measured", flush=True)
         return
-    print(f"[profile] request under the profiler {wall:.1f} ms, kernels "
+    print(f"[{tag}] request under the profiler {wall:.1f} ms, kernels "
           f"{busy:.1f} ms, device busy share {busy / wall:.3f}", flush=True)
     top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, count) in top:
-        print(f"[profile]   {us / 1e3:9.3f} ms {count:5d}x  {name[:110]}", flush=True)
+        print(f"[{tag}]   {us / 1e3:9.3f} ms {count:5d}x  {name[:110]}", flush=True)
+
+
+def frames_close(got, want, name):
+    """A serving / render knob of the bf16 rounding class (the Winograd
+    convs) against the direct-conv frames on the same inputs and weights:
+    mean |diff| <= 1e-2 and PSNR >= 40 dB (the JAX package's gate for such
+    a knob, its tests/test_demo_golden.py)."""
+    import math
+    diff = (got.float() - want.float()).abs()
+    mse = float((diff ** 2).mean())
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+    print(f"[{name}] frames against the direct convs' on the same inputs: mean|diff|="
+          f"{float(diff.mean()):.3e} (tol 1e-2), max|diff|={float(diff.max()):.3e}, PSNR "
+          f"{psnr:.2f} dB (tol 40)", flush=True)
+    if not (float(diff.mean()) <= 1e-2 and psnr >= 40.0):
+        raise AssertionError(f"{name}: frames differ from the direct convs' beyond the "
+                             "rounding class")
 
 
 def frames_ok(frames, name):
@@ -856,36 +1064,42 @@ def check_small_stage1(dev):
     frames_ok(card[1], "small stage 1 novel")
 
 
-def run_reconstruction(dev, requests=3):
+def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
     """The full-width bf16 stage-1 reconstruction: B = 1, a 1024^2 reference
-    view and 8 novel views per request."""
+    view and 8 novel views per request (knobs: config overrides, e.g.
+    upsampler_conv). Returns the launches and the last request's
+    (reference, novel) frames on the CPU."""
+    import dataclasses
+
     import torch
     from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops import winograd as Wg
     from audio_motion_avatar_tpu_torch.ops.splat_tiles import render_multi_view
     from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
     from audio_motion_avatar_tpu_torch.weights import perturb_heads
 
-    cfg = AvatarConfig()
+    cfg = dataclasses.replace(AvatarConfig(), **knobs)
     H, W = cfg.image_size
     t0 = time.perf_counter()
     rec = build_reconstructor(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     perturb_heads(rec.model, seed=1, std=1e-2)
     visible_heads(rec.model, scale_bias=-1.0, opacity_bias=0.0)
     n_params = sum(p.numel() for p in rec.model.parameters())
-    print(f"[reconstruct] built in {time.perf_counter() - t0:.1f} s, "
-          f"{n_params / 1e9:.3f} G parameters", flush=True)
+    print(f"[{tag}] built in {time.perf_counter() - t0:.1f} s, "
+          f"{n_params / 1e9:.3f} G parameters ({knobs or 'direct convs'})", flush=True)
     ref = to_device(make_batch(1, 1, (H, W), seed=0), dev)
     test = to_device(make_batch(1, 8, (H, W), seed=1), dev)
     t0 = time.perf_counter()
     rec(ref, test)
     torch.cuda.synchronize()
-    print(f"[reconstruct] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
+    print(f"[{tag}] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
           flush=True)
 
-    counters = (st.composite_tiles, at.attention)
+    counters = (st.composite_tiles, at.attention, Wg.winograd_conv3x3,
+                Wg.winograd_conv3x3_gn_relu)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -905,18 +1119,21 @@ def run_reconstruction(dev, requests=3):
               (cfg.smplx_transformer_head_dim, 2 * cfg.smplx_transformer_layers),
               (cfg.cross_transformer_head_dim, 2 * cfg.cross_transformer_layers),
               (cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0], cfg.ptv3_dec_depths[0]))
+    # K9a / K9b: one upsampler pass a request (the one reference frame)
+    k9a, k9b = upsampler_launches(cfg)
     per_request = {
         "composite_tiles": 2,      # the reference view, then all novel views
-        "attention": sum(n for d, n in stacks if d == at.KERNEL_HEAD_DIM)}
+        "attention": sum(n for d, n in stacks if d == at.KERNEL_HEAD_DIM),
+        "winograd_conv3x3": k9a, "winograd_conv3x3_gn_relu": k9b}
     expected = {k: v * requests for k, v in per_request.items()}
-    print(f"[reconstruct] launches {launches} expected {expected}", flush=True)
+    print(f"[{tag}] launches {launches} expected {expected}", flush=True)
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    for name, fr in (("reconstruct reference", out.reference),
-                     ("reconstruct novel", out.novel)):
+    for name, fr in ((f"{tag} reference", out.reference),
+                     (f"{tag} novel", out.novel)):
         frames_ok(fr, name)
     mean_s = sum(times) / len(times)
-    print(f"[reconstruct] requests {', '.join(f'{1e3 * s:.1f}' for s in times)} ms "
+    print(f"[{tag}] requests {', '.join(f'{1e3 * s:.1f}' for s in times)} ms "
           f"(mean {1e3 * mean_s:.1f} ms), peak memory {peak / 2**30:.2f} GiB; metrics "
           f"{ {k: round(v, 5) for k, v in out.metrics.items()} }", flush=True)
 
@@ -945,10 +1162,10 @@ def run_reconstruction(dev, requests=3):
         _, ms_nov = timed(lambda: render_multi_view(
             gb, test.cam_parms["intrinsic"], test.cam_parms["extrinsic"], W, H,
             max_per_tile=cfg.max_per_tile))
-    print(f"[reconstruct] stages: ViT {ms_vit:.1f} ms, image features {ms_feat:.1f} ms, "
+    print(f"[{tag}] stages: ViT {ms_vit:.1f} ms, image features {ms_feat:.1f} ms, "
           f"triplane encoder {ms_enc:.1f} ms, fusion {ms_fus:.1f} ms, renderer "
           f"{ms_ren:.1f} ms, 8 novel views {ms_nov:.1f} ms", flush=True)
-    return launches
+    return launches, (out.reference.cpu(), out.novel.cpu())
 
 
 def serve_from_reference(dev):
@@ -1162,11 +1379,13 @@ def check_small_train(dev):
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops import winograd as Wg
     from audio_motion_avatar_tpu_torch.training.train_state import OptimConfig
 
     body = smplx_ops.synthetic_model(seed=0, num_verts=300)
     size = (32, 32)
-    counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd,
+                Wg.winograd_conv3x3, Wg.winograd_conv3x3_gn_relu)
     optim = OptimConfig(learning_rate=1e-3, accumulate_steps=1)
     # (reference frames, targets) seeds of the draws; the first is the card's
     draws = ((0, 1), (2, 3), (4, 5))
@@ -1254,12 +1473,14 @@ def check_small_train(dev):
                                  "with the CPU")
 
 
-def run_train(dev, stage):
+def run_train(dev, stage, conv="xla"):
     """A full-width train run on the card; returns the launch counts of its
     measured steps. Stage 1: AvatarConfig() defaults (Sapiens-1B geometry,
     frozen), bf16, B = 1, a 1024^2 reference view and 8 test views,
     train_stage1.yaml's optimizer (lr 5e-5, accumulate 4, clip 1.0): 1
-    warm-up micro-step, then 8 (two accumulated updates). Stage 2: the
+    warm-up micro-step, then 8 (two accumulated updates); with a Winograd
+    upsampler_conv `conv`, 1 warm-up and 2 micro-steps at accumulate 1 (each
+    applies an update). Stage 2: the
     serving model's widths with the default render form (dense upsampler,
     tile splat), ted_speech.yaml's 1296x2304 frames, B = 2, T_in = 2,
     T_out = 6, train_stage2.yaml's lr 1e-4 and clip 1.0, both remat knobs on,
@@ -1267,15 +1488,21 @@ def run_train(dev, stage):
     at replacement probability 1 (batch 12 reuses the cache batch 0 wrote).
     Checks finite losses, moved trainable parameters, a bit-identical
     frozen ViT and the launches the configuration implies."""
+    import dataclasses
+
     import torch
     from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops import winograd as Wg
     from audio_motion_avatar_tpu_torch.train import STAGE1_OPTIM, STAGE2_OPTIM
 
-    tag = f"train stage {stage}"
-    if stage == 1:
+    tag = f"train stage {stage}" + ("" if conv == "xla" else f", {conv}")
+    if stage == 1 and conv != "xla":
+        cfg, B, T_in, T_out = AvatarConfig(upsampler_conv=conv), 1, 1, 8
+        ids, optim, prob = [0] * 3, dataclasses.replace(STAGE1_OPTIM, accumulate_steps=1), 0.0
+    elif stage == 1:
         cfg, B, T_in, T_out = AvatarConfig(), 1, 1, 8
         ids, optim, prob = [0] * 9, STAGE1_OPTIM, 0.0
     else:
@@ -1302,7 +1529,8 @@ def run_train(dev, stage):
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms, loss "
           f"{m['loss']:.5f}", flush=True)
-    counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd,
+                Wg.winograd_conv3x3, Wg.winograd_conv3x3_gn_relu)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1339,7 +1567,26 @@ def run_train(dev, stage):
         raise AssertionError(f"{tag}: the cache was not reused at batch 12")
     del tr
     torch.cuda.empty_cache()
-    return launches
+    return launches, mean_ms
+
+
+def phase(name, fn, *args, **kwargs):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def compare_serving(state, wstate, name):
+    """The Winograd + splash rollout against the direct-conv rollout on the
+    same tokens, request and (seeded) weights."""
+    import torch
+    roll, tri, smpl, (audio, cams) = state
+    with torch.no_grad():
+        want = roll(tri, smpl, audio, cams)[0]
+        got = wstate[0](tri, smpl, audio, cams)[0]
+    frames_close(got, want, name)
 
 
 def main():
@@ -1362,44 +1609,71 @@ def main():
     print(f"[build] {len(secs)} kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})", flush=True)
 
-    checks = [check_splat(dev), check_quad(dev), check_attention(dev), check_tiles(dev)]
-    check_attention_stage1(dev)
-    checks += [check_tiles_bwd(dev), check_attention_bwd(dev)]
-    check_small(dev)
-    launches, state = run_rollout(dev)
-    profile_rollout(*state)
-    del state
-    check_small_stage1(dev)
-    launches.update(run_reconstruction(dev))
-    serve_from_reference(dev)
-    check_small_train(dev)
-    train = [run_train(dev, 1), run_train(dev, 2)]
-    for name in ("attention_bwd", "composite_tiles_bwd"):
-        launches[name] = sum(t[name] for t in train)
+    def kernel_checks():
+        out = [check_splat(dev), check_quad(dev), check_attention(dev), check_tiles(dev)]
+        check_attention_stage1(dev)
+        return out + [check_tiles_bwd(dev), check_attention_bwd(dev), *check_winograd(dev)]
 
-    # launches: S and Q from the serving rollout (phase 4), K1 and A from
-    # the reconstruction (phase 7), K2 and A-bwd from the two training runs
-    # (phase 11); each path's counts are printed above
-    sources = {"splat_segments": ("composite_segments", "splat_segments.cu",
-                                  "audio_motion_avatar_tpu/ops/splat_pallas.py:503"),
-               "quad_rows": ("quad_rows", "quad_rows.cu",
-                             "audio_motion_avatar_tpu/ops/triplane.py:506"),
-               "attention": ("attention", "attention.cu",
-                             "audio_motion_avatar_tpu/models/transformer.py:261"),
-               "splat_tiles": ("composite_tiles", "splat_tiles.cu",
-                               "audio_motion_avatar_tpu/ops/splat_pallas.py:113"),
-               "splat_tiles_bwd": ("composite_tiles_bwd", "splat_tiles_bwd.cu",
-                                   "audio_motion_avatar_tpu/ops/splat_pallas.py:251"),
-               "attention_bwd": ("attention_bwd", "attention_bwd.cu",
-                                 "audio_motion_avatar_tpu/models/transformer.py:261")}
+    checks = phase("2 kernels", kernel_checks)
+    phase("3 small", check_small, dev)
+    roll, state = phase("4 rollout", run_rollout, dev)
+    phase("5 profile", profile_rollout, *state)
+    wino, wstate = phase("4b serve, Winograd + splash", run_rollout, dev,
+                         tag="serve, Winograd + splash", upsampler_conv="winograd",
+                         audio_attn_impl="splash")
+    compare_serving(state, wstate, "serve, Winograd + splash")
+    del state
+    phase("5b profile, Winograd + splash", profile_rollout, *wstate,
+          tag="profile, Winograd + splash")
+    del wstate
+    phase("6 small stage 1", check_small_stage1, dev)
+    rec, rec_frames = phase("7 reconstruct", run_reconstruction, dev)
+    rec_gn, gn_frames = phase("7b reconstruct, winograd_gn", run_reconstruction, dev,
+                              requests=2, tag="reconstruct, winograd_gn",
+                              upsampler_conv="winograd_gn")
+    for got, want, view in zip(gn_frames, rec_frames, ("reference", "novel")):
+        frames_close(got, want, f"reconstruct, winograd_gn {view}")
+    phase("8 serve from a reference", serve_from_reference, dev)
+    phase("9 small train", check_small_train, dev)
+    (train1, ms1), (train2, _) = (phase("10 train stage 1", run_train, dev, 1),
+                                  phase("11 train stage 2", run_train, dev, 2))
+    train_gn, ms_gn = phase("10b train stage 1, winograd_gn", run_train, dev, 1,
+                            conv="winograd_gn")
+    print(f"[train stage 1, winograd_gn] {ms_gn:.1f} ms a micro-step; phase 10 (direct "
+          f"convs): {ms1:.1f} ms", flush=True)
+
+    # each kernel's launches on its path: S and Q in the serving rollout
+    # (phase 4), K1 and A in the reconstruction (phase 7), K2 and A-bwd in
+    # the two training runs (phases 10, 11), K9a and splash (kernel A) in the
+    # Winograd + splash rollout (4b), K9b in the winograd_gn reconstruction
+    # and training (7b, 10b); each path's counts are printed above
+    k9b = "winograd_conv3x3_gn_relu"
+    launches = {"splat_segments": roll["composite_segments"], "quad_rows": roll["quad_rows"],
+                "attention": rec["attention"], "splat_tiles": rec["composite_tiles"],
+                "splat_tiles_bwd": train1["composite_tiles_bwd"] + train2["composite_tiles_bwd"],
+                "attention_bwd": train1["attention_bwd"] + train2["attention_bwd"],
+                "winograd": wino["winograd_conv3x3"], "winograd_gn": rec_gn[k9b] + train_gn[k9b],
+                "splash": wino["attention"]}
+    pallas = "audio_motion_avatar_tpu/"
+    sources = {"splat_segments": ("splat_segments.cu", pallas + "ops/splat_pallas.py:503"),
+               "quad_rows": ("quad_rows.cu", pallas + "ops/triplane.py:506"),
+               "attention": ("attention.cu", pallas + "models/transformer.py:261"),
+               "splat_tiles": ("splat_tiles.cu", pallas + "ops/splat_pallas.py:113"),
+               "splat_tiles_bwd": ("splat_tiles_bwd.cu", pallas + "ops/splat_pallas.py:251"),
+               "attention_bwd": ("attention_bwd.cu", pallas + "models/transformer.py:261"),
+               "winograd": ("winograd.cu", pallas + "ops/winograd.py:201"),
+               "winograd_gn": ("winograd.cu", pallas + "ops/winograd.py:275"),
+               "splash": ("attention.cu", pallas + "models/transformer.py:314")}
+    # splash is kernel A under the JAX package's splash name: A's numbers
+    checks.append(dict(next(c for c in checks if c["name"] == "attention"), name="splash"))
     line = []
     for c in checks:
-        counter, src, replaces = sources[c["name"]]
-        if launches[counter] <= 0:
+        src, replaces = sources[c["name"]]
+        if launches[c["name"]] <= 0:
             raise AssertionError(f"kernel {c['name']} was not launched on its path")
         line.append({"name": c["name"], "route": "cuda",
                      "source": f"audio_motion_avatar_tpu_torch/csrc/{src}",
-                     "replaces": replaces, "launches": launches[counter],
+                     "replaces": replaces, "launches": launches[c["name"]],
                      "max_abs_err": c["err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -38,6 +38,7 @@ from audio_motion_avatar_tpu_torch.models.transformer import head_attention
 from audio_motion_avatar_tpu_torch.ops import attention as at
 from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
 from audio_motion_avatar_tpu_torch.ops import smplx as tsmplx
+from audio_motion_avatar_tpu_torch.ops import winograd as wg
 from audio_motion_avatar_tpu_torch.ops.cameras import make_camera
 from audio_motion_avatar_tpu_torch.ops.splat import (Projected, activate_opacity,
                                                      activate_scales, project_gaussians)
@@ -206,11 +207,14 @@ def _kernel_calls(monkeypatch):
     """Count the plain versions' calls, which stand in for the kernels'
     launches on the CPU."""
     calls = {"attention": 0, "attention_bwd": 0, "composite_tiles": 0,
-             "composite_tiles_bwd": 0}
+             "composite_tiles_bwd": 0, "winograd_conv3x3": 0,
+             "winograd_conv3x3_gn_relu": 0}
     for mod, name, key in ((at, "attention_plain", "attention"),
                            (at, "attention_bwd_plain", "attention_bwd"),
                            (st, "composite_tiles_plain", "composite_tiles"),
-                           (st, "composite_tiles_bwd_plain", "composite_tiles_bwd")):
+                           (st, "composite_tiles_bwd_plain", "composite_tiles_bwd"),
+                           (wg, "winograd_conv3x3_plain", "winograd_conv3x3"),
+                           (wg, "winograd_conv3x3_gn_relu_plain", "winograd_conv3x3_gn_relu")):
         def counted(*a, _f=getattr(mod, name), _k=key, **kw):
             calls[_k] += 1
             return _f(*a, **kw)
@@ -240,6 +244,27 @@ def test_train_step_kernel_calls_match_the_expected_count(monkeypatch, stage):
     tr.step(to_device(make_batch(B, T_in, (32, 32), seed=0), "cpu"), to_device(other, "cpu"))
     want = chip_smoke.train_launches(cfg, stage, B, T_in, T_out)
     assert calls == want, (calls, want)
+
+
+@pytest.mark.parametrize("stage,conv", [(1, "winograd_gn"), (2, "winograd")])
+def test_train_step_winograd_launches_match_the_expected_count(monkeypatch, stage, conv):
+    """The same count with the Winograd upsampler convs at 128 channels (the
+    kernels' width): K9b on every stage-1 dense conv (GroupNorm fused), K9a
+    on stage 2's, each frame chunk's again in its remat recompute; their
+    backward is the direct conv's."""
+    cfg = dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)), triplane_feature_dim=128,
+                              smpl_token_dim=128, upsampler_conv=conv, triplane_output_frames=3)
+    tr = build_trainer(stage, cfg, device="cpu",
+                       smplx_model=tsmplx.synthetic_model(seed=0, num_verts=300))
+    B, T_in, T_out = (1, 1, 3) if stage == 1 else (1, cfg.triplane_input_frames, 3)
+    other = make_batch(B, T_out, (32, 32), seed=1, with_audio=stage == 2,
+                       audio_dim=cfg.audio_feature_dim)
+    calls = _kernel_calls(monkeypatch)
+    m = tr.step(to_device(make_batch(B, T_in, (32, 32), seed=0), "cpu"), to_device(other, "cpu"))
+    want = chip_smoke.train_launches(cfg, stage, B, T_in, T_out)
+    assert calls == want, (calls, want)
+    key = "winograd_conv3x3_gn_relu" if conv == "winograd_gn" else "winograd_conv3x3"
+    assert want[key] > 0 and np.isfinite(m["loss"])
 
 
 def test_loss_gradients_match_jax():

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels against their plain PyTorch versions, on
+"""The port's CUDA kernels against their plain PyTorch versions, on
 the card, at small and ragged shapes (chip_smoke.py holds them at the
 main paths' shapes). Every test needs a CUDA card and nvcc, and skips without
 one. This file imports no JAX, so on a machine without it run it without
@@ -13,7 +13,10 @@ outputs against the plain version in fp32 on the same bf16 inputs: every
 A-bwd's bf16 dQ / dK / dV against the fp32 plain backward under the same
 rule; K2 against its plain version at rtol 1e-4 (the JAX package's own
 tolerance for its backward kernel) and atol 1e-5 of the largest |ref| (the
-per-slot sums over a tile's 256 pixels are added in another order).
+per-slot sums over a tile's 256 pixels are added in another order); K9a and
+K9b (Winograd) against their plain versions on the same bf16 inputs under
+ops/winograd.excess_error (every |diff| <= 2^-7 |ref| + 2^-8 RMS(ref), the
+mean within 1e-2 of the Winograd-vs-direct distance).
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ from audio_motion_avatar_tpu_torch.ops import attention as at
 from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
 from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
 from audio_motion_avatar_tpu_torch.ops import triplane as tp
+from audio_motion_avatar_tpu_torch.ops import winograd as wg
 from audio_motion_avatar_tpu_torch.ops.cameras import make_camera
 from audio_motion_avatar_tpu_torch.ops.splat import (activate_opacity,
                                                      activate_scales,
@@ -281,3 +285,75 @@ def test_attention_bwd_wrapper_validates(cuda):
         at.attention_bwd(q, q, q, 0.125, None, q, stats.double(), q)
     with pytest.raises(ValueError, match="dout"):
         at.attention_bwd(q, q, q, 0.125, None, q, stats, q.float())
+
+
+@pytest.mark.parametrize("gn", [False, True])
+@pytest.mark.parametrize("padding,shape", [("SAME", (3, 12, 20, 128)),
+                                           ("VALID", (5, 20, 18, 256))])
+def test_winograd_kernels_match_plain(cuda, gn, padding, shape):
+    """K9a / K9b at a ragged tile count (not a multiple of the block's 32
+    tiles), SAME border and VALID windows, K = 128 and 256."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    N, C = shape[0], shape[-1]
+    K = 128 if C == 256 else 256
+    x = torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(3, 3, C, K, generator=g, device=cuda) / (9 * C) ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(K, generator=g, device=cuda)).to(torch.bfloat16)
+    a = 1.0 + 0.3 * torch.randn(N, C, generator=g, device=cuda)
+    c = 0.3 * torch.randn(N, C, generator=g, device=cuda)
+    if gn:
+        fn, plain, counter = wg.winograd_conv3x3_gn_relu, wg.winograd_conv3x3_gn_relu_plain, \
+            wg.winograd_conv3x3_gn_relu
+        args = (x, w, b, a, c, padding)
+        h = torch.relu(x.float() * a[:, None, None] + c[:, None, None]).to(x.dtype)
+    else:
+        fn, plain, counter = wg.winograd_conv3x3, wg.winograd_conv3x3_plain, wg.winograd_conv3x3
+        args, h = (x, w, b, padding), x
+    direct = torch.nn.functional.conv2d(h.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                                        padding=1 if padding == "SAME" else 0)
+    before = counter.launches
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    excess, mean = wg.excess_error(got, want, direct.permute(0, 2, 3, 1))
+    assert excess <= 1.0 and mean <= 1.0, (excess, mean)
+
+
+def test_winograd_wrapper_validates(cuda):
+    """The kernels take bf16 operands: fp32 raises, as does a width that is
+    not a multiple of 128; the fp32 build of a Winograd configuration is
+    refused."""
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
+    from audio_motion_avatar_tpu_torch.serve import build_rollout
+    x = torch.zeros(1, 8, 8, 128, device=cuda)
+    w = torch.zeros(3, 3, 128, 128, device=cuda)
+    b = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        wg.winograd_conv3x3(x, w, b, "SAME")
+    with pytest.raises(ValueError, match="multiples of 128"):
+        wg.winograd_conv3x3(x[..., :64].bfloat16(), w[:, :, :64].bfloat16(), b.bfloat16(), "SAME")
+    cfg = serving_config(dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)),
+                                             triplane_feature_dim=128, smpl_token_dim=128),
+                         upsampler_conv="winograd")
+    with pytest.raises(ValueError, match="bf16"):
+        build_rollout(cfg, device=cuda)
+
+
+def test_splash_route_is_kernel_a(cuda):
+    """audio_attn_impl 'splash' runs kernel A: the self-attention's output
+    on the splash route equals kernel A's on the same q / k / v bit for bit."""
+    from audio_motion_avatar_tpu_torch.models.transformer import (Transformer1D, linear,
+                                                                 merge_heads, split_heads)
+    bf16 = torch.bfloat16
+    attn = Transformer1D(1, 2, 64, 128, attn_impl="splash", dtype=bf16).to(cuda).block_0.attn1
+    x = torch.randn(2, 300, 128, device=cuda, generator=torch.Generator(device=cuda).manual_seed(6))
+    with torch.no_grad():
+        q, k, v = (split_heads(linear(x, layer, bf16), 2) for layer in (attn.q, attn.k, attn.v))
+        before = at.attention.launches
+        got = attn(x)
+        assert at.attention.launches == before + 1
+        want = linear(merge_heads(at.attention(q, k, v, 0.125)), attn.out, bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -186,15 +186,31 @@ def test_renderer_rejects_non_serving_knobs(knob, value):
     assert getattr(AudioDrivenAvatar(cfg).renderer.cfg, knob) == value
 
 
-@pytest.mark.parametrize("knob,value", [("rgb", False), ("upsampler_conv", "winograd"),
+@pytest.mark.parametrize("knob,value", [("rgb", False), ("upsample_triplane_encoder", True),
                                         ("upsample_triplane", False)])
 def test_renderer_rejects_unported_knobs(knob, value):
-    """SH colours (ops/sh.py), the Winograd convs and the planes without the
-    upsampler are not ported: they raise rather than run something else."""
+    """SH colours (ops/sh.py), the encoder-side upsample path (the stage-1
+    triplane encoder's TriplaneDownsampler, so the stage-1 stack is built)
+    and the planes without the upsampler are not ported: they raise rather
+    than run something else."""
     from audio_motion_avatar_tpu_torch.models.audio_avatar import AudioDrivenAvatar
     with pytest.raises(NotImplementedError, match=knob):
         AudioDrivenAvatar(dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)),
-                                              **{knob: value}))
+                                              **{knob: value}), num_verts_encoder=300)
+
+
+@pytest.mark.parametrize("conv", ["winograd", "winograd_gn", "fft"])
+def test_renderer_builds_the_winograd_upsampler(conv):
+    """upsampler_conv 'winograd' and 'winograd_gn' (kernels K9a, K9b) build
+    the upsampler with that conv_impl; any other value raises."""
+    from audio_motion_avatar_tpu_torch.models.audio_avatar import AudioDrivenAvatar
+    cfg = dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)), upsampler_conv=conv)
+    if conv == "fft":
+        with pytest.raises(ValueError, match="conv_impl"):
+            AudioDrivenAvatar(cfg)
+        return
+    res = AudioDrivenAvatar(cfg).renderer.upsampler.up_0.res
+    assert res.conv_impl == conv
 
 
 def test_serve_loop_slides_window(runs):
