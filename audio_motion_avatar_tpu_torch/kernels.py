@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,16 +48,20 @@ KERNELS = {
     "attention_bwd": (
         "attention_bwd.cu", (),
         {"attention_bwd_launch": (
-            [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _P], _I)}),
+            [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _P], _I),
+         "attention_bwd_smem": ([], _I)}),
     "splat_tiles_bwd": (
         "splat_tiles_bwd.cu", ("--fmad=false",),
         {"splat_tiles_bwd_launch": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)}),
     "winograd": (
         "winograd.cu", (),
-        {"winograd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I)}),
+        {"winograd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
+         "winograd_smem": ([], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc's output of each verbose build (ptxas's registers and spills)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -111,11 +116,36 @@ def build(names: Optional[Iterable[str]] = None,
             errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
             continue
         if verbose and log:
+            BUILD_LOGS[name] = log
             print(f"[kernels] {name}:\n{log}", flush=True)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """{kernel entry (mangled): {registers, spill_stores, spill_loads,
+    stack}} from the output of a build with `-Xptxas -v`."""
+    usage: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[entry]["registers"] = int(m.group(1))
+    return usage
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -138,6 +138,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 attention.launches = 0
 
 
+BWD_BLOCK = 128   # keys (dK / dV blocks) or queries (dQ blocks) a block of A-bwd
+
+
+def attention_bwd_scratch(B: int, H: int, Sq: int):
+    """Shape of A-bwd's fp32 scratch: per query row {m, 1/l, Delta, 0}, (B H,
+    Sq_pad, 4), Sq rounded up to the kernel's 128-query blocks
+    (csrc/attention_bwd.cu reads whole 64-row tiles of it; the padding rows
+    add nothing)."""
+    return B * H, -(-Sq // BWD_BLOCK) * BWD_BLOCK, 4
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, kv_mask: Optional[torch.Tensor],
                   out: torch.Tensor, stats: torch.Tensor, dout: torch.Tensor):
@@ -157,18 +168,18 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             not stats.is_contiguous():
         raise ValueError("attention_bwd: stats must be contiguous float32 "
                          f"({B}, {H}, {Sq}, 2)")
-    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    dq = torch.zeros(B, H, Sq, D, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rows = torch.empty(attention_bwd_scratch(B, H, Sq), dtype=torch.float32,
+                       device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library("attention_bwd")
     rc = lib.attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        dout.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), rows.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], float(scale),
         kernels.stream_ptr(q.device))
     kernels.check(rc, "attention_bwd")
     attention_bwd.launches += 1
-    return dq.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 attention_bwd.launches = 0

@@ -88,6 +88,13 @@ def transform_kernel(w: torch.Tensor) -> torch.Tensor:
     return u.reshape(16, w.shape[2], w.shape[3])
 
 
+def kernel_u(w: torch.Tensor) -> torch.Tensor:
+    """U as csrc/winograd.cu takes it: transform_kernel(w) rounded to bf16
+    once, contiguous (16, C, K), so that TMA reads (C, K) boxes of each of
+    the 16 products with K innermost."""
+    return transform_kernel(w).to(torch.bfloat16).contiguous()
+
+
 def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               groups: int, eps: float = 1e-6):
     """GroupNorm statistics of x (N, H, W, C) folded into a per-image channel
@@ -229,7 +236,7 @@ def _launch(x, w, b, a, c, padding, name):
                     not t.is_contiguous() or t.device != x.device:
                 raise ValueError(f"{name}: {arg} must be contiguous float32 "
                                  f"({N}, {C}) on {x.device}")
-    u = transform_kernel(w).to(torch.bfloat16)
+    u = kernel_u(w)
     bias = b.float().contiguous()
     out = torch.empty(N, 2 * Hh, 2 * Wh, K, dtype=torch.bfloat16, device=x.device)
     rc = kernels.library("winograd").winograd_launch(

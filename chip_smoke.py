@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (any failure exits non-zero):
   1. build   — compiles the seven CUDA sources from audio_motion_avatar_tpu_torch/csrc
-               (one nvcc per source, in parallel) into build/kernels/;
+               (one nvcc per source, in parallel) into build/kernels/, with
+               ptxas's registers and spills (printed again beside A-bwd and
+               K9a / K9b);
   2. kernels — calls each kernel's wrapper at the serving path's shapes and
                holds it against its plain PyTorch version on the same inputs:
                S (segmented splat, 6 frames at 512^2, 30k gaussians): max|diff| <= 1e-5;
@@ -40,6 +42,11 @@ Phases (any failure exits non-zero):
                input transform once or (K9b) leaving the padded border to the
                affine; timed beside the plain versions, the bounds and
                F.conv2d (for K9b the chain relu(a x + c), F.conv2d);
+  2c. parent comparison (only with --parent DIR, DIR holding an earlier
+               tree's audio_motion_avatar_tpu_torch/csrc, e.g. unpacked by git
+               archive under build/) — that tree's A-bwd and K9a / K9b built
+               into build/parent/ and timed beside this tree's at every shape
+               of their checks, in turns (earlier, this, this, earlier);
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -208,6 +215,23 @@ def bound(flops, peak_flops, nbytes):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_resources(name, entries, smem):
+    """One line per kernel entry of library `name` whose mangled name holds
+    one of `entries` (label -> substring): registers and spills from this
+    run's ptxas log (kernels.build(verbose=True)), and its dynamic shared
+    memory (`smem`: label -> bytes)."""
+    from audio_motion_avatar_tpu_torch import kernels
+    usage = kernels.ptxas_usage(kernels.BUILD_LOGS.get(name, ""))
+    out = []
+    for label, key in entries.items():
+        u = next((v for k, v in usage.items() if key in k), None)
+        regs = "not in this run's build log" if u is None else (
+            f"{u.get('registers')} registers, {u.get('spill_stores')} bytes spill stores, "
+            f"{u.get('spill_loads')} bytes spill loads")
+        out.append(f"{label}: {regs}, {smem[label]} bytes dynamic shared memory")
+    return "; ".join(out)
 
 
 def check_splat(dev):
@@ -523,6 +547,31 @@ def check_tiles_bwd(dev):
     return out
 
 
+def attention_bwd_cases(dev):
+    """A-bwd's training shapes, (name, B, H, Sq, Skv, kv_mask): the audio
+    self-attention and its final_tail, fusion and predictor self and cross,
+    the PTv3 decoder's masked patches (30000 points in patches of 512: 59
+    patches, the last with 304 valid)."""
+    import torch
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+
+    cfg = AvatarConfig()
+    S_img = (cfg.sapiens_resolution // cfg.vit_patch) ** 2
+    L = cfg.smpl_token_len
+    S_tri = 3 * cfg.triplane_resolution ** 2
+    S_aud, S_fus = 2 * (S_tri + L), S_tri + L
+    G, P = 59, cfg.ptv3_patch_size
+    mask = torch.ones(G, P, dtype=torch.bool, device=dev)
+    mask[-1, 30000 - (G - 1) * P:] = False
+    return [("audio self", 2, 8, S_aud, S_aud, None),
+            ("audio final_tail", 2, 8, S_aud // 2, S_aud, None),
+            ("fusion self", 1, 8, S_fus, S_fus, None),
+            ("fusion cross", 1, 8, S_fus, S_img, None),
+            ("predictor self", 1, 8, L, L, None),
+            ("predictor cross", 1, 8, L, S_img, None),
+            ("ptv3 masked", G, 4, P, P, mask)]
+
+
 def check_attention_bwd(dev):
     """A-bwd at every training shape against the fp32 plain backward on the
     same bf16 inputs: dQ, dK and dV each under ops/attention.excess_error's
@@ -532,31 +581,22 @@ def check_attention_bwd(dev):
     backward."""
     import torch
     import torch.nn.functional as Fn
-    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    from audio_motion_avatar_tpu_torch import kernels
     from audio_motion_avatar_tpu_torch.ops import attention as at
 
-    cfg = AvatarConfig()
     g = torch.Generator(device=dev).manual_seed(2)
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
 
-    S_img = (cfg.sapiens_resolution // cfg.vit_patch) ** 2
-    L = cfg.smpl_token_len
-    S_tri = 3 * cfg.triplane_resolution ** 2
-    S_aud, S_fus = 2 * (S_tri + L), S_tri + L
-    # 30000 points in patches of 512: 59 patches, the last with 304 valid
-    G, P = 59, cfg.ptv3_patch_size
-    mask = torch.ones(G, P, dtype=torch.bool, device=dev)
-    mask[-1, 30000 - (G - 1) * P:] = False
-    cases = [("audio self", 2, 8, S_aud, S_aud, None),
-             ("audio final_tail", 2, 8, S_aud // 2, S_aud, None),
-             ("fusion self", 1, 8, S_fus, S_fus, None),
-             ("fusion cross", 1, 8, S_fus, S_img, None),
-             ("predictor self", 1, 8, L, L, None),
-             ("predictor cross", 1, 8, L, S_img, None),
-             ("ptv3 masked", G, 4, P, P, mask)]
+    cases = attention_bwd_cases(dev)
     scale = 64 ** -0.5
+    bwd_lib = kernels.library("attention_bwd")
+    print("[train kernels] A-bwd resources: " + kernel_resources(
+        "attention_bwd", {"dK/dV and dQ blocks": "attn_bwd_main", "row statistics":
+                          "attn_bwd_rows"},
+        {"dK/dV and dQ blocks": bwd_lib.attention_bwd_smem(), "row statistics": 0}),
+        flush=True)
     line, errs = None, []
     for name, B, H, Sq, Skv, m in cases:
         q, k, v, dout = rnd(B, H, Sq, 64), rnd(B, H, Skv, 64), rnd(B, H, Skv, 64), rnd(B, H, Sq, 64)
@@ -639,8 +679,13 @@ def check_winograd(dev):
     it). Returns the kernels-line entries of K9a and K9b."""
     import torch
     import torch.nn.functional as Fn
+    from audio_motion_avatar_tpu_torch import kernels
     from audio_motion_avatar_tpu_torch.ops import winograd as W
 
+    smem = kernels.library("winograd").winograd_smem()
+    print("[kernels] K9a / K9b resources: " + kernel_resources(
+        "winograd", {"K9a": "winograd_kernelILb0", "K9b": "winograd_kernelILb1"},
+        {"K9a": smem, "K9b": smem}), flush=True)
     g = torch.Generator(device=dev).manual_seed(4)
     C = K = 256
     w = (torch.randn(3, 3, C, K, device=dev, generator=g) / (9 * C) ** 0.5).to(torch.bfloat16)
@@ -752,6 +797,105 @@ def winograd_border_not_zeroed(x, w, b, a, c):
     xp = W._affine_relu(W._pad(x, "SAME"), a, c).to(x.dtype)
     u = W.transform_kernel(w).to(x.dtype)
     return W._wino_plain(xp, u, b.float(), Hh, Wh)
+
+
+def parent_library(parent, name, argtypes):
+    """The parent commit's build of csrc/<name>.cu, from the tree unpacked at
+    `parent` (its audio_motion_avatar_tpu_torch/csrc), compiled with the
+    port's nvcc flags into build/parent/ and loaded with its C signature."""
+    import ctypes
+    from audio_motion_avatar_tpu_torch import kernels
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"lib{name}.so")
+    src = os.path.join(parent, "audio_motion_avatar_tpu_torch", "csrc", f"{name}.cu")
+    subprocess.run([kernels._nvcc(), *kernels._BASE_FLAGS, "-o", out, src], check=True)
+    lib = ctypes.CDLL(out)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def compare_parent(dev, parent):
+    """The parent commit's A-bwd and K9a / K9b beside this tree's, at every
+    shape of check_attention_bwd and check_winograd, on the same inputs, in
+    turns (parent, this tree, this tree, parent), CUDA-event means of 5
+    calls of each wrapper; the parent's A-bwd wrapper as it was (Delta and a
+    zeroed fp32 dQ buffer, then the cast)."""
+    import ctypes
+    import torch
+    from audio_motion_avatar_tpu_torch import kernels
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import winograd as W
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    old_bwd = parent_library(parent, "attention_bwd", [P] * 11 + [I] * 4 + [ctypes.c_float, P])
+    old_wino = parent_library(parent, "winograd", [P] * 6 + [I] * 6 + [P])
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name, B, H, Sq, Skv, m in attention_bwd_cases(dev):
+        q, dout = (torch.randn(B, H, Sq, 64, device=dev, generator=g).bfloat16() for _ in range(2))
+        k, v = (torch.randn(B, H, Skv, 64, device=dev, generator=g).bfloat16() for _ in range(2))
+        out, stats = at._attention_kernel(q, k, v, 0.125, m, True)
+
+        def old():
+            delta = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+            dq = torch.zeros(B, H, Sq, 64, dtype=torch.float32, device=dev)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            kernels.check(old_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  None if m is None else m.data_ptr(), out.data_ptr(),
+                                  dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Skv,
+                                  0.125, kernels.stream_ptr(dev)), "parent attention_bwd")
+            return dq.bfloat16(), dk, dv
+
+        def new():
+            return at.attention_bwd(q, k, v, 0.125, m, out, stats, dout)
+
+        same = [at.excess_error(a, b.float()) for a, b in zip(new(), old())]
+        t = [time_ms(f, 5) for f in (old, new, new, old)]
+        flops = 10.0 * B * H * Sq * Skv * 64
+        print(f"[parent] A-bwd {name} ({B}, {H}, {Sq}, {Skv}): parent {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"this tree {t[1]:.4f} / {t[2]:.4f} ms ({flops / min(t[1], t[2]) / 1e9:.1f} "
+              f"TFLOP/s), x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; this tree against the "
+              f"parent's outputs under the A rule: {max(same):.3f}", flush=True)
+        del q, k, v, dout, out, stats
+        torch.cuda.empty_cache()
+    C = K = 256
+    w = (torch.randn(3, 3, C, K, device=dev, generator=g) / (9 * C) ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(K, device=dev, generator=g)).to(torch.bfloat16)
+    for kern, N, S, padding, _ in WINOGRAD_CASES:
+        x = torch.randn(N, S, S, C, device=dev, generator=g).to(torch.bfloat16)
+        a = c = None
+        if kern == "K9b":
+            a = 1.0 + 0.3 * torch.randn(N, C, device=dev, generator=g)
+            c = 0.3 * torch.randn(N, C, device=dev, generator=g)
+        Hh, Wh = W._tiles(x.shape, w.shape, padding)
+
+        def old():
+            u = W.kernel_u(w)
+            bias = b.float().contiguous()
+            o = torch.empty(N, 2 * Hh, 2 * Wh, K, dtype=torch.bfloat16, device=dev)
+            kernels.check(old_wino(x.data_ptr(), u.data_ptr(), bias.data_ptr(),
+                                   None if a is None else a.data_ptr(),
+                                   None if c is None else c.data_ptr(), o.data_ptr(), N, S, S,
+                                   C, K, int(padding == "SAME"), kernels.stream_ptr(dev)),
+                          "parent winograd")
+            return o
+
+        def new():
+            if a is None:
+                return W.winograd_conv3x3(x, w, b, padding)
+            return W.winograd_conv3x3_gn_relu(x, w, b, a, c, padding)
+
+        diff = float((new().float() - old().float()).abs().max())
+        t = [time_ms(f, 5) for f in (old, new, new, old)]
+        flops = 2.0 * 16 * N * Hh * Wh * C * K
+        print(f"[parent] {kern} ({N}, {S}^2, {C}) {padding}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"this tree {t[1]:.4f} / {t[2]:.4f} ms ({flops / min(t[1], t[2]) / 1e9:.1f} "
+              f"TFLOP/s), x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; max|diff| against the "
+              f"parent {diff:.3e}", flush=True)
+        del x
+        torch.cuda.empty_cache()
 
 
 def tame_seeded_weights(model):
@@ -1596,7 +1740,14 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from audio_motion_avatar_tpu_torch import kernels
+    try:
+        from audio_motion_avatar_tpu_torch import kernels
+    except ImportError as e:
+        # the script copied without the repository (the contract's check
+        # that it fails there): no result, a nonzero exit that says why
+        print(f"chip_smoke: the port's package is not beside this script ({e})",
+              file=sys.stderr)
+        return 3
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1615,6 +1766,9 @@ def main():
         return out + [check_tiles_bwd(dev), check_attention_bwd(dev), *check_winograd(dev)]
 
     checks = phase("2 kernels", kernel_checks)
+    if "--parent" in sys.argv:
+        phase("2c parent comparison", compare_parent, dev,
+              sys.argv[sys.argv.index("--parent") + 1])
     phase("3 small", check_small, dev)
     roll, state = phase("4 rollout", run_rollout, dev)
     phase("5 profile", profile_rollout, *state)

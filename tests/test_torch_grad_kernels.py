@@ -79,6 +79,18 @@ def test_attention_bwd_plain_matches_jax_vjp(B, H, Sq, Skv, masked):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("B,H,Sq", [(2, 8, 6304), (2, 8, 3152), (1, 8, 80), (59, 4, 512),
+                                     (1, 1, 1)])
+def test_attention_bwd_scratch_covers_the_kernels_tiles(B, H, Sq):
+    """A-bwd's launch plan: its per-row scratch covers every 64-query tile
+    the dK / dV blocks stream and every 128-query dQ block, padded to whole
+    blocks."""
+    rows = at.attention_bwd_scratch(B, H, Sq)
+    assert rows[0] == B * H and rows[2] == 4
+    assert rows[1] % at.BWD_BLOCK == 0 and Sq <= rows[1] < Sq + at.BWD_BLOCK
+    assert -(-Sq // 64) * 64 <= rows[1]
+
+
 def test_kernel_rounding_reference():
     """chip_smoke.kernel_rounding, the CPU yardstick for the bf16 train steps
     on the kernels: with bf16 operands its attention and backward round

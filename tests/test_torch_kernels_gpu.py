@@ -253,6 +253,10 @@ def test_tile_bwd_wrapper_validates(cuda):
     (2, 1, 130, 77, True),     # ragged edges, masks, one batch all masked
     (1, 2, 64, 640, True),     # several key blocks
     (2, 2, 200, 64, False),    # several query blocks over one key block
+    (1, 2, 40, 129, False),    # Sq < 64; one key past a 128-key block edge
+    (2, 2, 80, 129, True),     # Sq = 80, one batch all masked, a key past the edge
+    (1, 1, 6304, 6304, False), # the audio length: 49 blocks of 128 keys + 32
+    (2, 1, 3152, 6304, False), # final_tail: Sq != Skv
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, B, H, Sq, Skv, masked):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -278,6 +282,22 @@ def test_attention_bwd_kernel_matches_plain(cuda, B, H, Sq, Skv, masked):
         assert at.excess_error(got, ref) <= 1.0, (name, at.excess_error(got, ref))
 
 
+def test_attention_bwd_kernel_is_deterministic(cuda):
+    """dQ comes from its own pass, not from atomics: two launches on the
+    same inputs give dQ, dK and dV bit for bit (ragged, masked)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, H, Sq, Skv = 2, 2, 300, 333
+    q, dout = (torch.randn(B, H, Sq, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, H, Skv, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    mask = torch.arange(Skv, device=cuda)[None, :] < torch.tensor([200, 333], device=cuda)[:, None]
+    out, stats = at._attention_kernel(q, k, v, 0.125, mask, True)
+    first = at.attention_bwd(q, k, v, 0.125, mask, out, stats, dout)
+    second = at.attention_bwd(q, k, v, 0.125, mask, out, stats, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_attention_bwd_wrapper_validates(cuda):
     q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16, device=cuda)
     stats = torch.zeros(1, 1, 8, 2, device=cuda)
@@ -289,10 +309,15 @@ def test_attention_bwd_wrapper_validates(cuda):
 
 @pytest.mark.parametrize("gn", [False, True])
 @pytest.mark.parametrize("padding,shape", [("SAME", (3, 12, 20, 128)),
-                                           ("VALID", (5, 20, 18, 256))])
+                                           ("VALID", (5, 20, 18, 256)),
+                                           ("SAME", (7, 8, 8, 128)),
+                                           ("VALID", (300, 20, 20, 256)),
+                                           ("VALID", (40, 20, 20, 128))])
 def test_winograd_kernels_match_plain(cuda, gn, padding, shape):
-    """K9a / K9b at a ragged tile count (not a multiple of the block's 32
-    tiles), SAME border and VALID windows, K = 128 and 256."""
+    """K9a / K9b at tile counts that are not a multiple of the block's 128
+    tiles (180, 360, 112, 24300, 3240), blocks that span images (7 images
+    of 16 tiles; the serving path's VALID convs of many 20^2 windows), the
+    SAME border (with GN: zero after the affine), K = 128 and 256."""
     g = torch.Generator(device=cuda).manual_seed(5)
     N, C = shape[0], shape[-1]
     K = 128 if C == 256 else 256

@@ -124,6 +124,21 @@ def test_function_gradients_match_jax(padding):
                                        atol=1e-3 * float(np.abs(rv).max()), err_msg=name)
 
 
+@pytest.mark.parametrize("C,K", [(128, 128), (256, 128), (128, 256)])
+def test_kernel_u_is_the_bf16_transform_in_the_kernels_layout(C, K):
+    """csrc/winograd.cu reads U by TMA as contiguous bf16 (16, C, K) boxes:
+    kernel_u is transform_kernel (the JAX package's G w G^T, fp32) rounded
+    once, in that layout, also from a weight whose storage is not (3, 3, C,
+    K) in order."""
+    rng = np.random.RandomState(C + K)
+    w = torch.tensor(rng.randn(K, C, 3, 3).astype(np.float32)).permute(2, 3, 1, 0)
+    u = W.kernel_u(w)
+    assert u.dtype == torch.bfloat16 and u.shape == (16, C, K) and u.is_contiguous()
+    assert torch.equal(u, W.transform_kernel(w).to(torch.bfloat16))
+    want = np.asarray(JW.transform_kernel(jnp.asarray(w.numpy())), np.float32).reshape(16, C, K)
+    np.testing.assert_allclose(u.float().numpy(), want, rtol=2 ** -8, atol=1e-6)
+
+
 def test_conv3x3_picks_winograd_by_shape():
     """`conv3x3` (the JAX _WinoConv) runs the direct twin on shapes the
     kernels refuse (C % 128, odd sizes), Winograd otherwise."""
