@@ -68,7 +68,6 @@ constexpr int NCONS = 256;                   // two consumer warpgroups
 constexpr int NTHREAD = NCONS + 32;          // and one producer warp
 constexpr int STAGES = 3;
 constexpr uint32_t TILE_BYTES = TILE * D * 2;
-constexpr float MASKED = -1e30f;
 
 struct RowStat {
   float m, inv_l, delta, pad;
@@ -90,12 +89,6 @@ struct __align__(1024) DqSmem {
   __nv_bfloat16 v[STAGES][TILE * D];
   uint64_t full[STAGES], empty[STAGES], q_full;
 };
-
-template <typename T>
-__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return *reinterpret_cast<T*>(raw + ((1024 - (a & 1023)) & 1023));
-}
 
 __global__ void attn_bwd_rows(const __nv_bfloat16* __restrict__ dout,
                               const __nv_bfloat16* __restrict__ out,
@@ -123,7 +116,7 @@ __global__ void attn_bwd_rows(const __nv_bfloat16* __restrict__ dout,
 __device__ __forceinline__ float key_bias(const uint8_t* __restrict__ kv_mask, int b, int Skv,
                                           int key) {
   if (key >= Skv) return -INFINITY;
-  if (kv_mask != nullptr && !kv_mask[(size_t)b * Skv + key]) return MASKED;
+  if (kv_mask != nullptr && !kv_mask[(size_t)b * Skv + key]) return kMaskedLogit;
   return 0.f;
 }
 

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the redesigned kernels A-bwd
-// (attention_bwd.cu) and K9a / K9b (winograd.cu): mbarriers, TMA loads,
-// warpgroup matrix products (wgmma) with their shared-memory descriptors,
-// and the host-side encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by the redesigned kernels A
+// (attention.cu), A-bwd (attention_bwd.cu) and K9a / K9b (winograd.cu):
+// mbarriers, TMA loads, warpgroup matrix products (wgmma) with their
+// shared-memory descriptors, and the host-side encoding of TMA tensor maps.
 //
 // Operand tiles in shared memory take one of two canonical layouts:
 //  - 128-byte swizzled rows (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B):
@@ -27,6 +27,18 @@ namespace sm90 {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// a T at the first 1024-byte boundary of dynamic shared memory (allocate
+// sizeof(T) + 1024 bytes): 128-byte swizzled tiles need that alignment
+template <typename T>
+__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return *reinterpret_cast<T*>(raw + ((1024 - (a & 1023)) & 1023));
+}
+
+// a masked key's logit in kernels A and A-bwd: it replaces the logit, so a
+// row whose keys are all masked averages them uniformly
+constexpr float kMaskedLogit = -1e30f;
 
 // ---- mbarriers -------------------------------------------------------------
 
@@ -143,6 +155,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for the registers of a register A operand: called after the wait
+// for the products that read them, it keeps the compiler from giving those
+// registers to other values while the products are in flight
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // Accumulator layout of an m64n64 fp32 product (each thread 32 values): warp
 // w of the warpgroup owns rows 16 w .. 16 w + 15; value 4 j + 2 h + e sits
 // at row 16 w + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e. Packed to
@@ -172,10 +193,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB), "n"(SB));
 }
 
-// d += A B, A from registers (4 bf16 pairs a thread, K-major), B from shared
-// memory; TB: 1 = MN-major
+// d (+)= A B, A from registers (4 bf16 pairs a thread, K-major), B from
+// shared memory; TB: 1 = MN-major; accumulate 0 overwrites d
 template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -191,7 +213,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(accumulate));
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -220,6 +249,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Makes the primary context of the device that holds `ptr` current on the
+// calling thread. A thread that has made no runtime call yet has none (the
+// autograd engine's device thread, running a backward or a checkpointed
+// forward, until some runtime call binds it), and cuTensorMapEncodeTiled, a
+// driver call, fails there: make_map_3d binds and encodes again.
+inline bool bind_context(const void* ptr) {
+  cudaPointerAttributes attr;
+  if (cudaPointerGetAttributes(&attr, ptr) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  return cudaSetDevice(attr.device) == cudaSuccess;
+}
+
 // A bf16 tensor of `planes` x `rows` x `cols` contiguous values (cols * 2
 // bytes a multiple of 16) read in boxes of box_rows x box_cols (box_cols * 2
 // <= 128) with 128-byte swizzle. Returns false when it cannot be encoded.
@@ -231,10 +274,13 @@ inline bool make_map_3d(CUtensorMap* map, const void* base, uint64_t cols, uint6
   const cuuint64_t strides[2] = {cols * 2, cols * rows * 2};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  auto encode = [&] {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+  };
+  return encode() || (bind_context(base) && encode());
 }
 
 }  // namespace sm90

@@ -16,29 +16,46 @@
 //   - the activation backward gated on op * e < 0.99 and power < 0;
 //   - a weight dropped under T 1e-4 while log(1 - alpha) keeps summing.
 //
-// Design: one block per tile, one thread per pixel. A forward sweep over the
-// slots (staged through shared memory) keeps each 64-slot chunk's starting
-// log-transmittance per pixel in shared memory and forms the pre-clip output.
-// The backward walks the chunks back to front; for each it rebuilds the
-// chunk's per-slot log-transmittance forward from the chunk's start (so every
-// T_before is the forward's own sum, in the forward's order: recovering it by
-// subtracting log1p(-alpha) back to front would drift, the sum reaching
-// ~-2000 at K = 512), then walks the chunk's slots back to front carrying the
-// suffix sum sum_{j>k} G_j w_j. The nine per-slot sums over the 256 pixels go
-// through warp shuffles into a per-warp row of shared memory and are added
-// over the 8 warps in a fixed order into the tile's own slots: no atomics,
-// the same result every run. The chunk is 64 slots, not K1's 128, because
-// the per-(slot, pixel) log-transmittance of a chunk lives in shared memory
-// (64 KB). Built with --fmad=false, as K1, so the recomputed forward rounds
-// as K1 and the plain version do.
-//
-// Bound on the H100: like K1, bytes where tiles are mostly padding (read the
+// Bound on the H100: bytes where tiles are mostly padding (read the
 // (T, 9, K) params and write d params of the same size, plus the gradient)
-// and fp32 operations where they are full (93 a (pixel, valid slot) pair:
-// one recomputed forward blend, one backward walk with the blend and
-// activation backward and the nine reductions). This first version walks
-// every slot, padding included, and evaluates each alpha three times (the
-// sweep, the chunk's prefix rebuild, the walk).
+// and fp32 operations where they are full: 93 a (pixel, live slot) pair (one
+// recomputed forward blend, one backward walk with the blend and activation
+// backward and the nine reductions).
+//
+// Design: one block per tile, one thread per pixel, and only the work that
+// changes a result.
+//   - The live prefix. The binning keeps each tile's gaussians as a prefix of
+//     its K slots and gives the padding opacity 0. A slot of opacity 0 has
+//     alpha 0 at every pixel: it adds log1p(-0) = -0 to the
+//     log-transmittance, weight 0 to the colour and exactly 0 to all nine
+//     gradients. So the block finds the last slot of nonzero opacity (one
+//     read of the opacity row, a block max) and walks only up to it; the
+//     slots past it get 0 written.
+//   - Dropped pixels. Where a pixel drops a slot (power > 0 or alpha <
+//     1/255) the same holds for that pixel alone: the thread skips
+//     everything but the test, and a warp in which no pixel keeps the slot
+//     writes 0 to its reduction row and skips the reductions.
+//   - Each exp and log once. The forward sweep carries T = exp(log T) from
+//     one kept slot to the next; the backward walk carries the transmittance
+//     after the slot (the one before the later slot, or T_final), so a kept
+//     pair takes one log1p in the sweep, one exp in the walk. Every value is
+//     the one the sweep computed, bit for bit: an exact identity, not a
+//     re-derivation (subtracting log1p(-alpha) back to front would drift;
+//     the sum reaches ~-2000 at K = 512).
+//   - Chunks of 32 slots. The sweep keeps each chunk's starting
+//     log-transmittance per pixel in shared memory; the backward walks the
+//     chunks back to front, rebuilding each chunk's per-slot
+//     log-transmittance forward from its start, the last chunk's kept from
+//     the sweep itself (most tiles have one or two chunks live). 32 slots
+//     keep shared memory at ~58 KB a block at K = 512: 3 blocks an SM.
+//   - The nine per-slot sums over a warp's 32 pixels: eight values reduced by
+//     halving exchanges (4 + 2 + 1 shuffles leave each lane one value, two
+//     more finish it), the ninth by a butterfly: 14 shuffles where nine
+//     butterflies take 45. The per-warp rows are added over the 8 warps in a
+//     fixed order into the tile's own slots: no atomics, the same result
+//     every run.
+// Built with --fmad=false, as K1, so the recomputed forward rounds as K1 and
+// the plain version do.
 
 #include <cuda_runtime.h>
 
@@ -46,12 +63,13 @@ namespace {
 
 constexpr int TILE = 16;
 constexpr int P = TILE * TILE;
-constexpr int CH = 64;
+constexpr int CH = 32;
 constexpr int NPARAM = 9;
 constexpr int NWARP = P / 32;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Slot {
   float dx, dy, power, e, araw, alpha;
@@ -60,13 +78,11 @@ struct Slot {
 
 // The forward's alpha of staged slot j at pixel (px, py), operation for
 // operation as splat_blend.cuh.
-__device__ __forceinline__ Slot eval_slot(float (*sp)[CH], int j,
-                                          float px, float py) {
+__device__ __forceinline__ Slot eval_slot(float (*sp)[CH], int j, float px, float py) {
   Slot s;
   s.dx = px - sp[0][j];
   s.dy = py - sp[1][j];
-  s.power = -0.5f * (sp[2][j] * s.dx * s.dx + sp[4][j] * s.dy * s.dy)
-            - sp[3][j] * s.dx * s.dy;
+  s.power = -0.5f * (sp[2][j] * s.dx * s.dx + sp[4][j] * s.dy * s.dy) - sp[3][j] * s.dx * s.dy;
   s.e = expf(fminf(s.power, 0.f));
   s.araw = sp[5][j] * s.e;
   const float alpha_c = fminf(s.araw, ALPHA_MAX);
@@ -75,21 +91,47 @@ __device__ __forceinline__ Slot eval_slot(float (*sp)[CH], int j,
   return s;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// Sums v[0..7] over the warp: afterwards lane l holds the sum of value
+// 4 (l >> 4 & 1) + 2 (l >> 3 & 1) + (l >> 2 & 1), the same in the 4 lanes
+// of a quad. Each halving step keeps the half of the values its side of the
+// exchange owns and adds the partner's copy of it.
+__device__ __forceinline__ float warp_sum8(float (&v)[8], int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  for (int i = 0; i < 4; ++i) {
+    const float send = hi16 ? v[i] : v[i + 4];
+    const float keep = hi16 ? v[i + 4] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = hi8 ? v[i] : v[i + 2];
+    const float keep = hi8 ? v[i + 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+  const float send = hi4 ? v[0] : v[1];
+  float x = (hi4 ? v[1] : v[0]) + __shfl_xor_sync(FULL, send, 4);
+  x += __shfl_xor_sync(FULL, x, 2);
+  x += __shfl_xor_sync(FULL, x, 1);
   return x;
 }
 
-__global__ void __launch_bounds__(P) tile_bwd_kernel(
-    const float* __restrict__ params, const float* __restrict__ grad, int K,
-    int tx, int tiles_per_frame, float* __restrict__ dparams) {
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
+__global__ void __launch_bounds__(P, 3) tile_bwd_kernel(const float* __restrict__ params,
+                                                     const float* __restrict__ grad, int K,
+                                                     int tx, int tiles_per_frame,
+                                                     float* __restrict__ dparams) {
   extern __shared__ float smem[];
-  float (*sp)[CH] = reinterpret_cast<float (*)[CH]>(smem);   // [9][CH]
-  float* lt = smem + NPARAM * CH;                             // [CH][P]
-  float (*red)[NPARAM][CH] =
-      reinterpret_cast<float (*)[NPARAM][CH]>(lt + CH * P);   // [NWARP][9][CH]
-  float* cs = lt + CH * P + NWARP * NPARAM * CH;              // [nchunk][P]
+  float(*sp)[CH] = reinterpret_cast<float(*)[CH]>(smem);                // [9][CH]
+  float* lt = smem + NPARAM * CH;                                        // [CH][P]
+  float(*red)[NPARAM][CH] = reinterpret_cast<float(*)[NPARAM][CH]>(lt + CH * P);  // [NWARP][9][CH]
+  float* cs = lt + CH * P + NWARP * NPARAM * CH;                         // [nchunk][P]
+  __shared__ int live_w[NWARP];
 
   const int t = blockIdx.x;
   const int pix = threadIdx.x;
@@ -99,7 +141,20 @@ __global__ void __launch_bounds__(P) tile_bwd_kernel(
   const float py = (float)(pix / TILE) + (float)((tid / tx) * TILE);
   const float* tp = params + (long long)t * NPARAM * K;
   float* dp = dparams + (long long)t * NPARAM * K;
-  const int nchunk = (K + CH - 1) / CH;
+
+  // ---- the live prefix: up to the last slot of nonzero opacity ----
+  int live = 0;
+  for (int k = pix; k < K; k += P)
+    if (tp[5LL * K + k] != 0.f) live = k + 1;
+  live = __reduce_max_sync(FULL, live);
+  if (lane == 0) live_w[warp] = live;
+  __syncthreads();
+  live = 0;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) live = max(live, live_w[w]);
+  for (int row = 0; row < NPARAM; ++row)
+    for (int k = live + pix; k < K; k += P) dp[(long long)row * K + k] = 0.f;
+  const int nchunk = (live + CH - 1) / CH;
 
   auto stage = [&](int base, int n) {
     __syncthreads();
@@ -110,27 +165,32 @@ __global__ void __launch_bounds__(P) tile_bwd_kernel(
     __syncthreads();
   };
 
-  // ---- forward sweep: chunk-start log T, the pre-clip output ----
-  float logT = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  // ---- forward sweep: chunk-start log T, the last chunk's per-slot log T,
+  // the pre-clip output ----
+  float logT = 0.f, T = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   for (int c = 0; c < nchunk; ++c) {
-    const int base = c * CH, n = min(CH, K - base);
+    const int base = c * CH, n = min(CH, live - base);
+    const bool last = c == nchunk - 1;
     cs[c * P + pix] = logT;
     stage(base, n);
     for (int j = 0; j < n; ++j) {
+      if (last) lt[j * P + pix] = logT;
       const Slot s = eval_slot(sp, j, px, py);
+      if (!s.keep) continue;   // alpha 0: log T and the colour stay as they are
       const float logT_after = logT + log1pf(-s.alpha);
-      if (!(expf(logT_after) < T_EPS)) {
-        const float w = s.alpha * expf(logT);
+      const float T_after = expf(logT_after);
+      if (!(T_after < T_EPS)) {
+        const float w = s.alpha * T;
         acc_r = acc_r + w * sp[6][j];
         acc_g = acc_g + w * sp[7][j];
         acc_b = acc_b + w * sp[8][j];
       }
       logT = logT_after;
+      T = T_after;
     }
   }
-  const float T_final = expf(logT);
-  const float r_pre = acc_r + T_final, g_pre = acc_g + T_final,
-              b_pre = acc_b + T_final;
+  const float T_final = T;
+  const float r_pre = acc_r + T_final, g_pre = acc_g + T_final, b_pre = acc_b + T_final;
   const float* gp = grad + ((long long)t * P + pix) * 3;
   const float gr = (r_pre > 0.f && r_pre < 1.f) ? gp[0] : 0.f;
   const float gg = (g_pre > 0.f && g_pre < 1.f) ? gp[1] : 0.f;
@@ -139,41 +199,51 @@ __global__ void __launch_bounds__(P) tile_bwd_kernel(
   const float bg = gT * T_final;
 
   // ---- backward: chunks back to front, slots back to front ----
-  float S = 0.f;   // sum over the later slots of G_j w_j
+  float S = 0.f;         // sum over the later slots of G_j w_j
+  float T_after = T_final;   // the transmittance after the slot walked
   for (int c = nchunk - 1; c >= 0; --c) {
-    const int base = c * CH, n = min(CH, K - base);
-    stage(base, n);
-    float lg = cs[c * P + pix];
-    for (int j = 0; j < n; ++j) {
-      lt[j * P + pix] = lg;
-      lg = lg + log1pf(-eval_slot(sp, j, px, py).alpha);
+    const int base = c * CH, n = min(CH, live - base);
+    if (c != nchunk - 1) {   // the last chunk's params and log T are in place
+      stage(base, n);
+      float lg = cs[c * P + pix];
+      for (int j = 0; j < n; ++j) {
+        lt[j * P + pix] = lg;
+        const Slot s = eval_slot(sp, j, px, py);
+        if (s.keep) lg = lg + log1pf(-s.alpha);
+      }
     }
     for (int j = n - 1; j >= 0; --j) {
       const Slot s = eval_slot(sp, j, px, py);
-      const float lb = lt[j * P + pix];
-      const float la = lb + log1pf(-s.alpha);
-      const float Tb = expf(lb);
-      const bool notcut = !(expf(la) < T_EPS);
-      const float w = notcut ? s.alpha * Tb : 0.f;
-      const float G = gr * sp[6][j] + gg * sp[7][j] + gb * sp[8][j];
-      float dalpha = (notcut ? G * Tb : 0.f) - (S + bg) / (1.f - s.alpha);
-      if (!s.keep) dalpha = 0.f;
-      S = S + G * w;
-      const float dar = s.araw < ALPHA_MAX ? dalpha : 0.f;
-      const float dpow = s.power < 0.f ? dar * s.araw : 0.f;
-      float vals[NPARAM] = {
-          dpow * (sp[2][j] * s.dx + sp[3][j] * s.dy),
-          dpow * (sp[4][j] * s.dy + sp[3][j] * s.dx),
-          dpow * (-0.5f * s.dx * s.dx),
-          dpow * (-s.dx * s.dy),
-          dpow * (-0.5f * s.dy * s.dy),
-          dar * s.e,
-          gr * w, gg * w, gb * w};
-#pragma unroll
-      for (int q = 0; q < NPARAM; ++q) {
-        const float v = warp_sum(vals[q]);
-        if (lane == 0) red[warp][q][j] = v;
+      if (!__any_sync(FULL, s.keep)) {
+        if (lane < NPARAM) red[warp][lane][j] = 0.f;
+        continue;
       }
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, v8 = 0.f;
+      if (s.keep) {
+        const float Tb = expf(lt[j * P + pix]);
+        const bool notcut = !(T_after < T_EPS);
+        const float w = notcut ? s.alpha * Tb : 0.f;
+        const float G = gr * sp[6][j] + gg * sp[7][j] + gb * sp[8][j];
+        const float dalpha = (notcut ? G * Tb : 0.f) - (S + bg) / (1.f - s.alpha);
+        S = S + G * w;
+        const float dar = s.araw < ALPHA_MAX ? dalpha : 0.f;
+        const float dpow = s.power < 0.f ? dar * s.araw : 0.f;
+        v[0] = dpow * (sp[2][j] * s.dx + sp[3][j] * s.dy);
+        v[1] = dpow * (sp[4][j] * s.dy + sp[3][j] * s.dx);
+        v[2] = dpow * (-0.5f * s.dx * s.dx);
+        v[3] = dpow * (-s.dx * s.dy);
+        v[4] = dpow * (-0.5f * s.dy * s.dy);
+        v[5] = dar * s.e;
+        v[6] = gr * w;
+        v[7] = gg * w;
+        v8 = gb * w;
+        T_after = Tb;
+      }
+      const float sum8 = warp_sum8(v, lane);
+      const float sum_b = warp_sum(v8);
+      if ((lane & 3) == 0)
+        red[warp][4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1)][j] = sum8;
+      if (lane == 0) red[warp][8][j] = sum_b;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < NPARAM * n; i += P) {
@@ -191,9 +261,10 @@ __global__ void __launch_bounds__(P) tile_bwd_kernel(
 // Shared memory a launch with K slots needs, in bytes.
 static size_t smem_bytes(int K) {
   const int nchunk = (K + CH - 1) / CH;
-  return sizeof(float) * (NPARAM * CH + CH * P + NWARP * NPARAM * CH +
-                          (size_t)nchunk * P);
+  return sizeof(float) * (NPARAM * CH + CH * P + NWARP * NPARAM * CH + (size_t)nchunk * P);
 }
+
+extern "C" int splat_tiles_bwd_smem(int K) { return (int)smem_bytes(K); }
 
 // params (n_tiles, 9, K) f32 and grad (n_tiles, 256, 3) f32, contiguous ->
 // dparams (n_tiles, 9, K). Returns cudaGetLastError() after the launch.

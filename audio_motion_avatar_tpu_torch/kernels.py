@@ -41,7 +41,10 @@ KERNELS = {
     "attention": (
         "attention.cu", (),
         {"attention_launch": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I)}),
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I),
+         "attention_launch_nwg": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _I], _I),
+         "attention_smem": ([_I], _I)}),
     "splat_tiles": (
         "splat_tiles.cu", ("--fmad=false",),
         {"splat_tiles_launch": ([_P, _I, _I, _I, _I, _P, _P], _I)}),
@@ -52,7 +55,8 @@ KERNELS = {
          "attention_bwd_smem": ([], _I)}),
     "splat_tiles_bwd": (
         "splat_tiles_bwd.cu", ("--fmad=false",),
-        {"splat_tiles_bwd_launch": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)}),
+        {"splat_tiles_bwd_launch": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
+         "splat_tiles_bwd_smem": ([_I], _I)}),
     "winograd": (
         "winograd.cu", (),
         {"winograd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),

@@ -9,7 +9,9 @@ cache_replacement_prob the fresh stage-1 tokens are replaced by the model's
 own predictions cached 12 frames earlier, bounded at 30 self-feeding
 iterations, and each step's last-2-frame predictions are written back under
 batch_id + 12. The cache is host-side state (PredictionCache, with the JAX
-package's random.Random draws) holding device tensors; the swap is
+package's random.Random draws) holding its entries in host memory, as the
+JAX package's np.asarray does: a step's device keeps nothing of it, and
+Stage2TrainLoop moves a hit back to the step's device. The swap is
 models.audio_avatar's flag * cached + (1 - flag) * fresh. The stage-1
 reconstruction runs without autograd, so only the audio net, the shared
 SMPL-X decoder and the shared renderer get gradients. The cache lives in
@@ -32,7 +34,8 @@ CACHE_MAX_ITERS = 30
 
 
 class PredictionCache:
-    """Host-side {(subject, frame): {triplane, smplx_tokens, iter}} store."""
+    """Host-side {(subject, frame): {triplane, smplx_tokens, iter}} store;
+    the tokens are CPU tensors."""
 
     def __init__(self, replacement_prob: float = 0.0, seed: int = 0):
         self.store = {}
@@ -52,8 +55,8 @@ class PredictionCache:
         if self.prob <= 0 or iter_count >= CACHE_MAX_ITERS:
             return None
         key = (subject_id, batch_id + CACHE_FUTURE_OFFSET)
-        item = {"triplane": out_tri[:, -2:].detach().clone(),
-                "smplx_tokens": out_smpl[:, -2:].detach().clone(),
+        item = {"triplane": out_tri[:, -2:].detach().to("cpu", copy=True),
+                "smplx_tokens": out_smpl[:, -2:].detach().to("cpu", copy=True),
                 "iter": iter_count + 1}
         self.store[key] = item
         return {key: item}
@@ -157,7 +160,9 @@ class Stage2TrainLoop:
         B = ref_batch.video.shape[0]
         dev = ref_batch.video.device
         use, tri, smpl, iters = self.cache.maybe_get(batch_id)
-        if not use:
+        if use:
+            tri, smpl = tri.to(dev), smpl.to(dev)
+        else:
             tri, smpl = _zero_tokens(self.cfg, B, dev)
         flag = torch.full((B,), 1.0 if use else 0.0, device=dev)
         state, metrics, out_tri, out_smpl, rendered, ref_rendered = self.step_fn(

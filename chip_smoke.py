@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero):
   1. build   — compiles the seven CUDA sources from audio_motion_avatar_tpu_torch/csrc
                (one nvcc per source, in parallel) into build/kernels/, with
-               ptxas's registers and spills (printed again beside A-bwd and
-               K9a / K9b);
+               ptxas's registers and spills (printed again beside A, K2,
+               A-bwd and K9a / K9b);
   2. kernels — calls each kernel's wrapper at the serving path's shapes and
                holds it against its plain PyTorch version on the same inputs:
                S (segmented splat, 6 frames at 512^2, 30k gaussians): max|diff| <= 1e-5;
@@ -17,8 +17,8 @@ Phases (any failure exits non-zero):
                plain version: every |diff| <= 2^-7 |ref| + 2^-4 RMS(ref),
                a rule that must also reject a version dropping the ragged
                last key block (or, masked, ignoring the mask);
-               K1 (tile splat, 1 + 8 views at 1024^2, 30k gaussians, K = 512):
-               max|diff| <= 1e-5;
+               K1 (tile splat, 1 + 8 views at 1024^2, 30k gaussians, K = 512,
+               and one 1296x2304 stage-2 frame): max|diff| <= 1e-5;
                A at the stage-1 shapes (the ViT's 24 x 4096^2 self-attention,
                the SMPL-X predictor's 80 queries and the fusion's 3152, each
                over themselves and across to the 4096 image tokens): the same
@@ -28,7 +28,8 @@ Phases (any failure exits non-zero):
                train kernels: K2 (tile splat backward; the stage-1 step's 1 +
                8 views at 1024^2 and one 1296x2304 frame, K = 512, a seeded
                output gradient) against its plain version at rtol 1e-4, atol
-               1e-5 max|ref|; A-bwd (attention backward) at every training
+               1e-5 max|ref|, and a second launch bit for bit; A-bwd
+               (attention backward) at every training
                shape (audio self-attention and its final_tail, fusion and
                predictor self and cross, the PTv3 masked patches) against
                the fp32 plain backward, dQ / dK / dV each under A's rule,
@@ -44,9 +45,10 @@ Phases (any failure exits non-zero):
                F.conv2d (for K9b the chain relu(a x + c), F.conv2d);
   2c. parent comparison (only with --parent DIR, DIR holding an earlier
                tree's audio_motion_avatar_tpu_torch/csrc, e.g. unpacked by git
-               archive under build/) — that tree's A-bwd and K9a / K9b built
-               into build/parent/ and timed beside this tree's at every shape
-               of their checks, in turns (earlier, this, this, earlier);
+               archive under build/) — that tree's A, K2, A-bwd and K9a / K9b
+               built into build/parent/ and timed, through this tree's
+               wrappers, beside this tree's at every shape of their checks,
+               in turns (earlier, this, this, earlier);
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -211,6 +213,32 @@ def time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches=20, replays=10):
+    """Device time of one call of fn: `launches` calls captured in a CUDA
+    graph, replayed `replays` times between CUDA events. Where a call's host
+    work takes longer than its kernels, time_ms measures the host; this
+    does not."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(launches):
+                fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (launches * replays)
+
+
 def bound(flops, peak_flops, nbytes):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -318,8 +346,13 @@ def check_quad(dev):
 def check_attention(dev):
     import torch
     import torch.nn.functional as Fn
+    from audio_motion_avatar_tpu_torch import kernels
     from audio_motion_avatar_tpu_torch.ops import attention as at
 
+    lib = kernels.library("attention")
+    print("[kernels] A resources: " + kernel_resources(
+        "attention", {"2 warpgroups": "attn_fwd_kernelILi2E", "3 warpgroups": "attn_fwd_kernelILi3E"},
+        {"2 warpgroups": lib.attention_smem(2), "3 warpgroups": lib.attention_smem(3)}), flush=True)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape):
@@ -385,28 +418,35 @@ def check_attention(dev):
             "shape": f"({B}, {H}, {S}, {D}) bf16"}
 
 
+def stage1_attention_shapes():
+    """Kernel A's stage-1 shapes, (name, H, Sq, Skv) at B = 1: the ViT's
+    self-attention, the SMPL-X predictor's and the fusion's, each over
+    themselves and across to the image tokens."""
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+
+    cfg = AvatarConfig()
+    S_img = (cfg.sapiens_resolution // cfg.vit_patch) ** 2
+    L = cfg.smpl_token_len
+    S_fus = 3 * cfg.triplane_resolution ** 2 + L
+    Hv, Hp, Hf = cfg.vit_heads, cfg.smplx_transformer_num_heads, cfg.cross_transformer_num_heads
+    return [("vit self", Hv, S_img, S_img), ("predictor self", Hp, L, L),
+            ("predictor cross", Hp, L, S_img), ("fusion self", Hf, S_fus, S_fus),
+            ("fusion cross", Hf, S_fus, S_img)]
+
+
 def check_attention_stage1(dev):
     """Kernel A at the stage-1 shapes under the same rule as the serving
     shapes; returns {shape name: ms} of the kernel."""
     import torch
-    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
     from audio_motion_avatar_tpu_torch.ops import attention as at
 
-    cfg = AvatarConfig()
     g = torch.Generator(device=dev).manual_seed(1)
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
 
-    S_img = (cfg.sapiens_resolution // cfg.vit_patch) ** 2
-    L = cfg.smpl_token_len
-    S_fus = 3 * cfg.triplane_resolution ** 2 + L
-    Hv, Hp, Hf = cfg.vit_heads, cfg.smplx_transformer_num_heads, cfg.cross_transformer_num_heads
-    cases = [("vit self", Hv, S_img, S_img), ("predictor self", Hp, L, L),
-             ("predictor cross", Hp, L, S_img), ("fusion self", Hf, S_fus, S_fus),
-             ("fusion cross", Hf, S_fus, S_img)]
     times = {}
-    for name, H, Sq, Skv in cases:
+    for name, H, Sq, Skv in stage1_attention_shapes():
         q, k, v = rnd(1, H, Sq, 64), rnd(1, H, Skv, 64), rnd(1, H, Skv, 64)
         out = at.attention(q, k, v, 0.125)
         ref = at.attention_plain(q.float(), k.float(), v.float(), 0.125)
@@ -489,10 +529,26 @@ def check_tiles(dev):
     ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
     print(f"[kernels] K1 splat_tiles: {ms:.4f} ms for {F} views, bound {bound_ms:.4f} ms "
           f"({by}; {padded_ms:.4f} ms if every padded slot counted)", flush=True)
-    return {"name": "splat_tiles", "err": err, "ms": ms,
+    line = {"name": "splat_tiles", "err": err, "ms": ms,
             "plain_ms": time_ms(lambda: st.composite_tiles_plain(packed, tx, T), 1),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
             "shape": f"({F * T}, 9, {K}) fp32, {valid} valid entries"}
+    del packed, out_k, out_p
+    # the stage-2 training frame (28 launches a step, of 1 to 4 frames)
+    packed, tx, T, valid = packed_views(dev, 2304, 1296, [4], K, N)
+    err = float((st.composite_tiles(packed, tx, T) - st.composite_tiles_plain(packed, tx, T))
+                .abs().max())
+    nbytes = packed.numel() * 4 + packed.shape[0] * st.P * 3 * 4
+    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * valid * st.P, PEAK_FP32_FLOPS, nbytes)
+    ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
+    print(f"[kernels] K1 splat_tiles one 1296x2304 frame: {tuple(packed.shape)}, {valid} valid "
+          f"entries; max|diff|={err:.3e} (tol 1e-5); {ms:.4f} ms, bound {bound_ms:.4f} ms ({by})",
+          flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"kernel K1 disagrees with its plain version at the frame: {err}")
+    del packed
+    torch.cuda.empty_cache()
+    return line
 
 
 def bwd_close(got, ref):
@@ -505,25 +561,37 @@ def bwd_close(got, ref):
     return float(((got - ref).abs() / tol).max())
 
 
+# K2's training shapes (name, W, H, binning windows of the views): the
+# stage-1 step's 1 reference and 8 test views at 1024^2, one stage-2 frame
+K2_CASES = (("1 + 8 views at 1024^2", 1024, 1024, [4] + [8] * 8),
+            ("one 1296x2304 frame", 2304, 1296, [4]))
+
+
 def check_tiles_bwd(dev):
-    """K2 at the training shapes: the stage-1 step's 1 reference and 8 test
-    views at 1024^2 (K = 512, windows 4 and 8) and one 1296x2304 stage-2
-    frame (window 4), each in one launch, with a seeded output gradient;
-    held against its plain version, timed beside it."""
+    """K2 at the training shapes (K2_CASES, K = 512), each in one launch,
+    with a seeded output gradient; held against its plain version and
+    against a second launch of its own (bit for bit), timed beside the
+    plain version."""
     import torch
+    from audio_motion_avatar_tpu_torch import kernels
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
 
+    lib = kernels.library("splat_tiles_bwd")
+    print("[train kernels] K2 resources: " + kernel_resources(
+        "splat_tiles_bwd", {"K2": "tile_bwd_kernel"}, {"K2": lib.splat_tiles_bwd_smem(512)}),
+        flush=True)
     out = None
-    for name, W, H, windows in (("1 + 8 views at 1024^2", 1024, 1024, [4] + [8] * 8),
-                                ("one 1296x2304 frame", 2304, 1296, [4])):
+    for name, W, H, windows in K2_CASES:
         packed, tx, T, valid = packed_views(dev, W, H, windows)
         g = torch.randn(packed.shape[0], st.P, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
         got = st.composite_tiles_bwd(packed, g, tx, T)
+        again = st.composite_tiles_bwd(packed, g, tx, T)
         ref = st.composite_tiles_bwd_plain(packed, g, tx, T)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         excess = bwd_close(got, ref)
+        identical = torch.equal(got, again)
         ms = time_ms(lambda: st.composite_tiles_bwd(packed, g, tx, T), 5)
         plain_ms = time_ms(lambda: st.composite_tiles_bwd_plain(packed, g, tx, T), 1, warmup=0)
         nbytes = 2 * packed.numel() * 4 + g.numel() * 4
@@ -535,14 +603,16 @@ def check_tiles_bwd(dev):
               f"excess {excess:.3f} (tol 1: rtol 1e-4, atol 1e-5 max|ref|); {ms:.3f} ms, "
               f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by}; operations "
               f"{ops_ms:.4f} ms at {SPLAT_BWD_OPS_PER_PAIR} a valid pair, bytes "
-              f"{bytes_ms:.4f} ms)", flush=True)
+              f"{bytes_ms:.4f} ms); a second launch bit-identical: {identical}", flush=True)
         if not (excess <= 1.0 and torch.isfinite(got).all()):
             raise AssertionError(f"kernel K2 disagrees with its plain version on {name}")
+        if not identical:
+            raise AssertionError(f"kernel K2 differs between two launches on {name}")
         if out is None:
             out = {"name": "splat_tiles_bwd", "err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
                    "shape": f"({packed.shape[0]}, 9, 512) fp32, {valid} valid entries"}
-        del packed, g, got, ref
+        del packed, g, got, again, ref
         torch.cuda.empty_cache()
     return out
 
@@ -799,58 +869,123 @@ def winograd_border_not_zeroed(x, w, b, a, c):
     return W._wino_plain(xp, u, b.float(), Hh, Wh)
 
 
-def parent_library(parent, name, argtypes):
+def parent_library(parent, name):
     """The parent commit's build of csrc/<name>.cu, from the tree unpacked at
     `parent` (its audio_motion_avatar_tpu_torch/csrc), compiled with the
-    port's nvcc flags into build/parent/ and loaded with its C signature."""
+    port's nvcc flags for that kernel (--fmad=false for the splat kernels)
+    into build/parent/ and loaded with the C functions of this tree's
+    kernels.KERNELS[name] that it has (their signatures unchanged)."""
     import ctypes
     from audio_motion_avatar_tpu_torch import kernels
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent")
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, f"lib{name}.so")
     src = os.path.join(parent, "audio_motion_avatar_tpu_torch", "csrc", f"{name}.cu")
-    subprocess.run([kernels._nvcc(), *kernels._BASE_FLAGS, "-o", out, src], check=True)
+    subprocess.run([kernels._nvcc(), *kernels._BASE_FLAGS, *kernels.KERNELS[name][1], "-o", out,
+                    src], check=True)
     lib = ctypes.CDLL(out)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
+    for fn, (argtypes, restype) in kernels.KERNELS[name][2].items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+    return lib
+
+
+def through(name, lib, fn):
+    """fn, a call of this tree's wrapper, with kernel `name` taken from
+    `lib` (an earlier build): the same checks, allocations and launch."""
+    from audio_motion_avatar_tpu_torch import kernels
+
+    def run():
+        saved = kernels._loaded.get(name)
+        kernels._loaded[name] = lib
+        try:
+            return fn()
+        finally:
+            kernels._loaded[name] = saved
+    return run
 
 
 def compare_parent(dev, parent):
-    """The parent commit's A-bwd and K9a / K9b beside this tree's, at every
-    shape of check_attention_bwd and check_winograd, on the same inputs, in
-    turns (parent, this tree, this tree, parent), CUDA-event means of 5
-    calls of each wrapper; the parent's A-bwd wrapper as it was (Delta and a
-    zeroed fp32 dQ buffer, then the cast)."""
-    import ctypes
+    """The parent commit's A, K2, A-bwd and K9a / K9b beside this tree's, at
+    every shape of check_attention and check_attention_stage1 (A), of
+    check_tiles_bwd (K2), check_attention_bwd and check_winograd, on the same
+    inputs, each through this tree's wrapper (`through`: the parent's
+    wrappers were the same), in turns (parent, this tree, this tree,
+    parent), CUDA-event means of 10 (A) or 5 calls, and for A also the
+    device time alone (graph_ms: at the small shapes the host's work per
+    call outlasts the kernel) and scaled_dot_product_attention's time (the
+    key mask as a boolean attn_mask) as a yardstick; this tree held against
+    the parent's outputs under each kernel's rule (A, A-bwd:
+    ops/attention.excess_error; K2: bwd_close; K9a / K9b: max|diff|)."""
     import torch
-    from audio_motion_avatar_tpu_torch import kernels
+    import torch.nn.functional as Fn
     from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
     from audio_motion_avatar_tpu_torch.ops import winograd as W
 
-    P, I = ctypes.c_void_p, ctypes.c_int
-    old_bwd = parent_library(parent, "attention_bwd", [P] * 11 + [I] * 4 + [ctypes.c_float, P])
-    old_wino = parent_library(parent, "winograd", [P] * 6 + [I] * 6 + [P])
+    libs = {name: parent_library(parent, name)
+            for name in ("attention", "splat_tiles_bwd", "attention_bwd", "winograd")}
     g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    ptv3_mask = torch.ones(354, 512, dtype=torch.bool, device=dev)
+    ptv3_mask[58::59, 30000 - 58 * 512:] = False
+    attn_cases = [("audio", 2, 8, 6304, 6304, None), ("audio q_tail", 2, 8, 3152, 6304, None),
+                  ("ptv3 masked", 354, 4, 512, 512, ptv3_mask)]
+    attn_cases += [(f"stage-1 {name}", 1, H, Sq, Skv, None)
+                   for name, H, Sq, Skv in stage1_attention_shapes()]
+    for name, B, H, Sq, Skv, m in attn_cases:
+        q, k, v = rnd(B, H, Sq, 64), rnd(B, H, Skv, 64), rnd(B, H, Skv, 64)
+
+        def new():
+            return at.attention(q, k, v, 0.125, m)
+
+        old = through("attention", libs["attention"], new)
+        ref = at.attention_plain(q.float(), k.float(), v.float(), 0.125, m)
+        excess = (at.excess_error(old(), ref), at.excess_error(new(), ref))
+        same = at.excess_error(new(), old().float())
+        t = [time_ms(f, 10) for f in (old, new, new, old)]
+        d = [graph_ms(f) for f in (old, new, new, old)]
+        sdpa = time_ms(lambda: Fn.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if m is None else m[:, None, None, :], scale=0.125), 10)
+        flops = 4.0 * B * H * Sq * Skv * 64
+        print(f"[parent] A {name} ({B}, {H}, {Sq}, {Skv}): parent {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"this tree {t[1]:.4f} / {t[2]:.4f} ms ({flops / min(t[1], t[2]) / 1e9:.1f} "
+              f"TFLOP/s), x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; device time a launch (CUDA "
+              f"graph): parent {d[0]:.4f} / {d[3]:.4f} ms, this tree {d[1]:.4f} / {d[2]:.4f} ms, "
+              f"x{min(d[0], d[3]) / min(d[1], d[2]):.2f}; scaled_dot_product_attention {sdpa:.4f} "
+              f"ms; excess against the fp32 plain version: parent {excess[0]:.3f}, this tree "
+              f"{excess[1]:.3f}; this tree against the parent's output under the A rule: "
+              f"{same:.3f}", flush=True)
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    for name, Wd, Ht, windows in K2_CASES:
+        packed, tx, T, valid = packed_views(dev, Wd, Ht, windows)
+        gr = torch.randn(packed.shape[0], st.P, 3, device=dev, generator=g)
+
+        def new():
+            return st.composite_tiles_bwd(packed, gr, tx, T)
+
+        old = through("splat_tiles_bwd", libs["splat_tiles_bwd"], new)
+        close = bwd_close(new(), old())
+        t = [time_ms(f, 5) for f in (old, new, new, old)]
+        print(f"[parent] K2 {name} {tuple(packed.shape)}, {valid} valid entries: parent "
+              f"{t[0]:.3f} / {t[3]:.3f} ms, this tree {t[1]:.3f} / {t[2]:.3f} ms, "
+              f"x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; this tree against the parent's output "
+              f"under bwd_close: {close:.3f}", flush=True)
+        del packed, gr
+        torch.cuda.empty_cache()
     for name, B, H, Sq, Skv, m in attention_bwd_cases(dev):
         q, dout = (torch.randn(B, H, Sq, 64, device=dev, generator=g).bfloat16() for _ in range(2))
         k, v = (torch.randn(B, H, Skv, 64, device=dev, generator=g).bfloat16() for _ in range(2))
         out, stats = at._attention_kernel(q, k, v, 0.125, m, True)
 
-        def old():
-            delta = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
-            dq = torch.zeros(B, H, Sq, 64, dtype=torch.float32, device=dev)
-            dk, dv = torch.empty_like(k), torch.empty_like(v)
-            kernels.check(old_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  None if m is None else m.data_ptr(), out.data_ptr(),
-                                  dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
-                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Skv,
-                                  0.125, kernels.stream_ptr(dev)), "parent attention_bwd")
-            return dq.bfloat16(), dk, dv
-
         def new():
             return at.attention_bwd(q, k, v, 0.125, m, out, stats, dout)
 
+        old = through("attention_bwd", libs["attention_bwd"], new)
         same = [at.excess_error(a, b.float()) for a, b in zip(new(), old())]
         t = [time_ms(f, 5) for f in (old, new, new, old)]
         flops = 10.0 * B * H * Sq * Skv * 64
@@ -871,22 +1006,12 @@ def compare_parent(dev, parent):
             c = 0.3 * torch.randn(N, C, device=dev, generator=g)
         Hh, Wh = W._tiles(x.shape, w.shape, padding)
 
-        def old():
-            u = W.kernel_u(w)
-            bias = b.float().contiguous()
-            o = torch.empty(N, 2 * Hh, 2 * Wh, K, dtype=torch.bfloat16, device=dev)
-            kernels.check(old_wino(x.data_ptr(), u.data_ptr(), bias.data_ptr(),
-                                   None if a is None else a.data_ptr(),
-                                   None if c is None else c.data_ptr(), o.data_ptr(), N, S, S,
-                                   C, K, int(padding == "SAME"), kernels.stream_ptr(dev)),
-                          "parent winograd")
-            return o
-
         def new():
             if a is None:
                 return W.winograd_conv3x3(x, w, b, padding)
             return W.winograd_conv3x3_gn_relu(x, w, b, a, c, padding)
 
+        old = through("winograd", libs["winograd"], new)
         diff = float((new().float() - old().float()).abs().max())
         t = [time_ms(f, 5) for f in (old, new, new, old)]
         flops = 2.0 * 16 * N * Hh * Wh * C * K

@@ -133,6 +133,15 @@ def test_quad_kernel_bit_exact(cuda, dtype, C):
     (1, 2, 9, 13, False),      # ragged: fewer queries and keys than a block
     (2, 1, 130, 77, True),     # ragged edges, masks, one batch all masked
     (1, 2, 64, 640, True),     # several key blocks
+    (1, 2, 1, 1, False),       # one query, one key
+    (2, 2, 63, 65, True),      # one row short of a warpgroup, one key past a tile
+    (1, 3, 65, 63, False),     # one row past a warpgroup, one key short of a tile
+    (2, 1, 127, 129, True),    # around the 128-query block and the 128-key edge
+    (1, 2, 129, 127, False),
+    (1, 2, 1, 6304, False),    # one query over the audio length
+    (1, 1, 6304, 1, False),    # the audio length over one key
+    (1, 1, 6304, 6304, False), # the audio self-attention of one head
+    (1, 2, 3152, 6304, True),  # q_tail: Sq != Skv, masked
 ])
 def test_attention_kernel_matches_plain(cuda, B, H, Sq, Skv, masked):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -150,6 +159,95 @@ def test_attention_kernel_matches_plain(cuda, B, H, Sq, Skv, masked):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, 64)
     assert at.excess_error(got, want) <= 1.0
+
+
+def _attention_inputs(cuda, B, H, Sq, Skv, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, Sq, 64, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(B, H, Skv, 64, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v
+
+
+def test_attention_kernel_stats(cuda):
+    """The (m, l) that A writes for A-bwd: m the row maximum of the base-2
+    logits (q k^T * scale * log2 e, a masked key -1e30), l the sum of
+    exp2(logit - m); a row whose keys are all masked has m = -1e30 exactly
+    and l = Skv (in fp32 -1e30 + log2 l would round back to -1e30, so the
+    two are kept apart). Writing them changes nothing in the output."""
+    B, H, Sq, Skv = 3, 2, 100, 150
+    q, k, v = _attention_inputs(cuda, B, H, Sq, Skv, 3)
+    mask = torch.arange(Skv, device=cuda)[None, :] < torch.tensor([150, 70, 0], device=cuda)[:, None]
+    out, stats = at._attention_kernel(q, k, v, 0.125, mask, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, at.attention(q, k, v, 0.125, mask))
+    x = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * (0.125 * 1.4426950408889634)
+    x = x.masked_fill(~mask[:, None, None, :], at.MASKED)
+    m = x.amax(-1)
+    l = torch.exp2(x - m[..., None]).sum(-1)
+    assert torch.allclose(stats[..., 0], m, rtol=1e-5, atol=1e-4)
+    assert torch.allclose(stats[..., 1], l, rtol=1e-4)
+    assert bool((stats[2, ..., 0] == at.MASKED).all()) and bool((stats[2, ..., 1] == Skv).all())
+
+
+def test_attention_kernel_block_shapes_agree(cuda):
+    """Blocks of 2 and of 3 consumer warpgroups (the launch picks one by the
+    waves they fill) compute every row alike: bit-identical outputs and
+    statistics, ragged and masked; two launches of either agree bit for bit."""
+    from audio_motion_avatar_tpu_torch import kernels
+
+    B, H, Sq, Skv = 2, 3, 250, 333
+    q, k, v = _attention_inputs(cuda, B, H, Sq, Skv, 4)
+    mask = torch.arange(Skv, device=cuda)[None, :] < torch.tensor([333, 100], device=cuda)[:, None]
+    lib = kernels.library("attention")
+    results = []
+    for nwg in (2, 3, 3, 2):
+        out = torch.empty_like(q)
+        stats = torch.empty(B, H, Sq, 2, device=cuda)
+        kernels.check(lib.attention_launch_nwg(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), B, H, Sq, Skv, 0.125, kernels.stream_ptr(cuda), nwg), "attention")
+        results.append((out, stats))
+    torch.cuda.synchronize()
+    want = at.attention_plain(q.float(), k.float(), v.float(), 0.125, mask)
+    assert at.excess_error(results[0][0], want) <= 1.0
+    for out, stats in results[1:]:
+        assert torch.equal(out, results[0][0]) and torch.equal(stats, results[0][1])
+    assert lib.attention_launch_nwg(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                    results[0][0].data_ptr(), None, B, H, Sq, Skv, 0.125,
+                                    kernels.stream_ptr(cuda), 4) != 0
+
+
+def test_tma_kernels_launch_from_a_fresh_thread(cuda):
+    """The kernels that encode TMA tensor maps (A, A-bwd) launched from a
+    thread that has made no CUDA call yet, as the autograd engine's device
+    thread is when a backward or a checkpointed forward first reaches them:
+    the encoding is a driver call, which needs the device's context current
+    on the calling thread (sm90.cuh's bind_context)."""
+    import threading
+
+    q, k, v = _attention_inputs(cuda, 1, 2, 9, 13, 7)
+    want = at.attention(q, k, v, 0.125)
+    want_out, want_stats = at._attention_kernel(q, k, v, 0.125, None, True)
+    want_grads = at.attention_bwd(q, k, v, 0.125, None, want_out, want_stats, q)
+    torch.cuda.synchronize()
+    got = {}
+
+    def work():
+        try:
+            got["out"] = at.attention(q, k, v, 0.125)
+            got["grads"] = at.attention_bwd(q, k, v, 0.125, None, want_out, want_stats, q)
+            torch.cuda.synchronize()
+        except Exception as e:   # handed to the test's thread
+            got["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert "error" not in got, got.get("error")
+    assert torch.equal(got["out"], want)
+    for a, b in zip(got["grads"], want_grads):
+        assert torch.equal(a, b)
 
 
 def test_attention_wrapper_validates(cuda):
@@ -210,7 +308,7 @@ def _bwd_close(got, want):
 @pytest.mark.parametrize("K,window", [(512, 4), (24, 8), (200, 4)])
 def test_tile_bwd_kernel_matches_plain(cuda, K, window):
     """K2 on 3 views in one launch: empty and clamped tiles, K above and
-    below the 64-slot chunk, a seeded output gradient."""
+    below the 32-slot chunk, a seeded output gradient."""
     packed, tx, T = _tile_setup(cuda, K, window)
     g = torch.randn(packed.shape[0], 256, 3, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(2))
@@ -222,6 +320,57 @@ def test_tile_bwd_kernel_matches_plain(cuda, K, window):
     assert got.shape == packed.shape and torch.isfinite(got).all()
     assert float(want.abs().max()) > 0
     assert _bwd_close(got, want), float((got - want).abs().max())
+
+
+def _live_prefix_tiles(cuda, K, seed=5):
+    """Packed params (6, 9, K) of tiles 0..5 of a 48x32 frame (tx = 3) made
+    to reach K2's edges: tile 0 has no live slot, tile 1 all K, tile 2 a live
+    prefix of 20 with opacity-0 slots at 0, 5, 6 and 19 inside it, tile 3
+    one live slot at the end (slot K - 1), tile 4 a prefix of K - 1, tile 5
+    every other slot live. Means scatter around each tile (some off it),
+    conics from broad to point-like (most pixels drop those); tile 3's one
+    slot is broad and on the tile."""
+    rng = np.random.RandomState(seed)
+    T, tx = 6, 3
+    p = np.zeros((T, 9, K), np.float32)
+    for t in range(T):
+        ox, oy = (t % tx) * 16, (t // tx) * 16
+        p[t, 0] = ox + rng.uniform(-6, 22, K)
+        p[t, 1] = oy + rng.uniform(-6, 22, K)
+        scale = np.exp(rng.uniform(np.log(0.01), np.log(3.0), K))
+        p[t, 2] = scale * rng.uniform(0.5, 1.5, K)
+        p[t, 4] = scale * rng.uniform(0.5, 1.5, K)
+        p[t, 3] = 0.3 * np.sqrt(p[t, 2] * p[t, 4]) * rng.uniform(-1, 1, K)
+        p[t, 5] = rng.uniform(0.05, 0.99, K)
+        p[t, 6:9] = rng.uniform(0, 1, (3, K))
+    p[0, 5] = 0.0
+    p[2, 5, 20:] = 0.0
+    p[2, 5, [0, 5, 6, 19]] = 0.0
+    p[3, 5, :K - 1] = 0.0
+    p[4, 5, K - 1] = 0.0
+    p[5, 5, 1::2] = 0.0
+    p[3, :6, K - 1] = [8.0, 24.0, 0.02, 0.0, 0.02, 0.8]   # broad, on tile 3's centre
+    return torch.as_tensor(p, device=cuda), tx, T
+
+
+@pytest.mark.parametrize("K", [45, 64, 70])
+def test_tile_bwd_kernel_live_prefix(cuda, K):
+    """K2 walks each tile's slots up to its last one of nonzero opacity and
+    writes 0 past it: tiles with no live slot, all K live, opacity-0 slots
+    inside the live prefix, one live slot at the very end; K a multiple of
+    the 32-slot chunk and not. Held against the plain version (which walks
+    every slot), and two launches agree bit for bit."""
+    packed, tx, T = _live_prefix_tiles(cuda, K)
+    g = torch.randn(T, 256, 3, device=cuda, generator=torch.Generator(device=cuda).manual_seed(6))
+    got = st.composite_tiles_bwd(packed, g, tx, T)
+    again = st.composite_tiles_bwd(packed, g, tx, T)
+    want = st.composite_tiles_bwd_plain(packed, g, tx, T)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and float(want.abs().max()) > 0
+    assert _bwd_close(got, want), float((got - want).abs().max())
+    assert torch.equal(got, again)
+    assert bool((got[0] == 0).all()) and bool((got[2, :, 20:] == 0).all())
+    assert float(got[3, :, K - 1].abs().max()) > 0
 
 
 def test_composite_tiles_function_on_the_card(cuda):

@@ -193,3 +193,38 @@ def test_prediction_cache_matches_jax():
                                            stage2.CACHE_MAX_ITERS) is None
     assert stage2.cache_depth_channels(0.5, 1)["l1_loss_cache_1"] == 0.5
     assert random.Random(3).random() == jstage2.PredictionCache(0.5, seed=3).rng.random()
+
+
+def test_prediction_cache_keeps_entries_on_the_host():
+    """Repair: put stores the step's last two frames of tokens in host memory
+    (the JAX package's np.asarray), as CPU tensors equal to them and copied
+    from them (a later write to the step's buffers leaves the entry as it
+    was); maybe_get hands them back with the same values, on the same draws
+    as the JAX cache. Stage2TrainLoop moves a hit back to the step's device."""
+    rng = np.random.RandomState(1)
+    tri = rng.randn(2, 6, 4, 5).astype(np.float32)
+    smpl = rng.randn(2, 6, 3, 7).astype(np.float32)
+    jc, pc = jstage2.PredictionCache(0.7, seed=4), stage2.PredictionCache(0.7, seed=4)
+    t_tri, t_smpl = torch.tensor(tri), torch.tensor(smpl)
+    assert set(jc.put(0, tri, smpl, 0)) == set(pc.put(0, t_tri, t_smpl, 0)) == {(0, 12)}
+    want = {"triplane": tri[:, -2:].copy(), "smplx_tokens": smpl[:, -2:].copy()}
+    t_tri.zero_()
+    t_smpl.zero_()
+    for name, w in want.items():
+        got = pc.store[(0, 12)][name]
+        assert got.device.type == "cpu" and got.dtype == torch.float32, name
+        np.testing.assert_array_equal(got.numpy(), w)
+        np.testing.assert_array_equal(got.numpy(), jc.store[(0, 12)][name])
+    hits = 0
+    for _ in range(20):
+        ju, jt, js, ji = jc.maybe_get(12)
+        pu, pt, ps, pi = pc.maybe_get(12)
+        assert (ju, ji) == (pu, pi)
+        if pu:
+            hits += 1
+            assert pt.device.type == "cpu" and pi == 1
+            np.testing.assert_array_equal(pt.numpy(), jt)
+            np.testing.assert_array_equal(ps.numpy(), js)
+            np.testing.assert_array_equal(pt.numpy(), want["triplane"])
+            np.testing.assert_array_equal(ps.numpy(), want["smplx_tokens"])
+    assert 0 < hits < 20
