@@ -1,7 +1,7 @@
-// The per-tile front-to-back blend shared by kernel S (splat_segments.cu)
-// and kernel K1 (splat_tiles.cu). The two differ only in where a tile's
-// depth-ordered gaussians come from: a contiguous segment of one sorted
-// (9, NP) array (S), or the tile's own (9, K) block of packed params (K1).
+// The per-tile front-to-back blend of kernel S (splat_segments.cu): a
+// tile's depth-ordered gaussians come from a contiguous segment of one
+// sorted (9, NP) array. (Kernel K1, splat_tiles.cu, applies the same rule
+// with a body of its own that walks only each tile's live prefix.)
 //
 // One block per 16x16 tile, one thread per pixel. The block stages the
 // tile's gaussians through shared memory 128 (9 floats each) at a time;

@@ -6,7 +6,7 @@
 // (tile, depth) into one (9, NP) array; tile t owns the contiguous segment
 // [starts[t], starts[t] + counts[t]) with counts already clamped to K.
 //
-// Design: the shared blend of splat_blend.cuh (one block per 16x16 tile, one
+// Design: the blend of splat_blend.cuh (one block per 16x16 tile, one
 // thread per pixel, the segment staged through shared memory 128 gaussians
 // at a time), loading tile t's gaussians from its segment. Built with
 // --fmad=false (see the header).

@@ -24,13 +24,9 @@
 //
 // Design: one block per tile, one thread per pixel, and only the work that
 // changes a result.
-//   - The live prefix. The binning keeps each tile's gaussians as a prefix of
-//     its K slots and gives the padding opacity 0. A slot of opacity 0 has
-//     alpha 0 at every pixel: it adds log1p(-0) = -0 to the
-//     log-transmittance, weight 0 to the colour and exactly 0 to all nine
-//     gradients. So the block finds the last slot of nonzero opacity (one
-//     read of the opacity row, a block max) and walks only up to it; the
-//     slots past it get 0 written.
+//   - The live prefix (splat_live.cuh, shared with K1): the block finds the
+//     last slot of nonzero opacity (one read of the opacity row, a block
+//     max) and walks only up to it; the slots past it get 0 written.
 //   - Dropped pixels. Where a pixel drops a slot (power > 0 or alpha <
 //     1/255) the same holds for that pixel alone: the thread skips
 //     everything but the test, and a warp in which no pixel keeps the slot
@@ -59,6 +55,8 @@
 
 #include <cuda_runtime.h>
 
+#include "splat_live.cuh"
+
 namespace {
 
 constexpr int TILE = 16;
@@ -77,7 +75,7 @@ struct Slot {
 };
 
 // The forward's alpha of staged slot j at pixel (px, py), operation for
-// operation as splat_blend.cuh.
+// operation as K1 (splat_tiles.cu).
 __device__ __forceinline__ Slot eval_slot(float (*sp)[CH], int j, float px, float py) {
   Slot s;
   s.dx = px - sp[0][j];
@@ -143,15 +141,7 @@ __global__ void __launch_bounds__(P, 3) tile_bwd_kernel(const float* __restrict_
   float* dp = dparams + (long long)t * NPARAM * K;
 
   // ---- the live prefix: up to the last slot of nonzero opacity ----
-  int live = 0;
-  for (int k = pix; k < K; k += P)
-    if (tp[5LL * K + k] != 0.f) live = k + 1;
-  live = __reduce_max_sync(FULL, live);
-  if (lane == 0) live_w[warp] = live;
-  __syncthreads();
-  live = 0;
-#pragma unroll
-  for (int w = 0; w < NWARP; ++w) live = max(live, live_w[w]);
+  const int live = splat_live::live_prefix<P>(tp + 5LL * K, K, live_w);
   for (int row = 0; row < NPARAM; ++row)
     for (int k = live + pix; k < K; k += P) dp[(long long)row * K + k] = 0.f;
   const int nchunk = (live + CH - 1) / CH;

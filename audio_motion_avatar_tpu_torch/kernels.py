@@ -60,7 +60,7 @@ KERNELS = {
     "winograd": (
         "winograd.cu", (),
         {"winograd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
-         "winograd_smem": ([], _I)}),
+         "winograd_smem": ([_I], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -87,10 +87,12 @@ def composite_tiles(tile_params: torch.Tensor, tx: int,
                                 kernels.stream_ptr(tile_params.device))
     kernels.check(rc, "splat_tiles")
     composite_tiles.launches += 1
+    composite_tiles.frames += T // (tiles_per_frame or T)
     return out
 
 
 composite_tiles.launches = 0
+composite_tiles.frames = 0   # frames composited by those launches
 
 BWD_CHUNK = 64   # slots whose log-transmittance K2 keeps per pixel at a time
 

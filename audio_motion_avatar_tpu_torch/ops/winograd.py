@@ -316,14 +316,28 @@ class WinogradConv3x3GnRelu(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """z = a x + c, h = relu(z); dz = dh [z > 0], dx = a dz, da = sum dz x,
+        dc = sum dz. Works in place on fp32 copies it owns and frees each
+        full-size temporary once it is spent (the relu mask is a boolean):
+        the values are those of the unfused formula, operation for
+        operation."""
         x, w, b, a, c = ctx.saved_tensors
-        z = x.float() * a.float()[:, None, None, :] + c.float()[:, None, None, :]
-        h = torch.relu(z).to(x.dtype)
+        af = a.float()[:, None, None, :]
+        z = x.to(torch.float32, copy=True).mul_(af).add_(c.float()[:, None, None, :])
+        keep = z > 0
+        h = z.relu_().to(x.dtype)
+        del z
         dh, dw, db = _conv_vjp(h, w, ctx.padding, g)
-        dz = dh.float() * (z > 0)
-        dx = dz * a.float()[:, None, None, :]
-        da = (dz * x.float()).sum(dim=(1, 2))
+        del h
+        dz = dh.to(torch.float32, copy=True).mul_(keep)
+        del dh, keep
         dc = dz.sum(dim=(1, 2))
+        # dz x in dz's layout (the conv's), so that the sum runs in the
+        # formula's order; x promoted element by element, not copied
+        dzx = torch.mul(dz, x, out=torch.empty_like(dz))
+        da = dzx.sum(dim=(1, 2))
+        del dzx
+        dx = dz.mul_(af)
         return (dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype), da.to(a.dtype),
                 dc.to(c.dtype), None)
 

@@ -18,7 +18,8 @@ Phases (any failure exits non-zero):
                a rule that must also reject a version dropping the ragged
                last key block (or, masked, ignoring the mask);
                K1 (tile splat, 1 + 8 views at 1024^2, 30k gaussians, K = 512,
-               and one 1296x2304 stage-2 frame): max|diff| <= 1e-5;
+               and one 1296x2304 stage-2 frame): max|diff| <= 1e-5 and a
+               second launch bit for bit;
                A at the stage-1 shapes (the ViT's 24 x 4096^2 self-attention,
                the SMPL-X predictor's 80 queries and the fusion's 3152, each
                over themselves and across to the 4096 image tokens): the same
@@ -45,10 +46,11 @@ Phases (any failure exits non-zero):
                F.conv2d (for K9b the chain relu(a x + c), F.conv2d);
   2c. parent comparison (only with --parent DIR, DIR holding an earlier
                tree's audio_motion_avatar_tpu_torch/csrc, e.g. unpacked by git
-               archive under build/) — that tree's A, K2, A-bwd and K9a / K9b
-               built into build/parent/ and timed, through this tree's
-               wrappers, beside this tree's at every shape of their checks,
-               in turns (earlier, this, this, earlier);
+               archive under build/) — that tree's S, A, K1, K2, A-bwd and
+               K9a / K9b built into build/parent/ and timed, through this
+               tree's wrappers, beside this tree's at every shape of their
+               checks, in turns (earlier, this, this, earlier), each output
+               held against the earlier one (S must be bit-identical);
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -103,14 +105,16 @@ Phases (any failure exits non-zero):
                warm-up + 8 micro-steps (two updates); ms a micro-step, peak
                memory, finite losses, moved trainable parameters, a
                bit-identical ViT, the K1 / K2 / A / A-bwd launches the config
-               implies (remat recompute included);
+               implies (remat recompute included) and the frames K1
+               composites;
  11. train stage 2 — the serving widths with the default render form at
                1296x2304, B = 2, T_in = 2, T_out = 6, lr 1e-4, clip 1.0, both
                remat knobs: 1 warm-up + 3 steps through Stage2TrainLoop, one
                reusing the prediction cache; the same checks.
  10b. train stage 1, winograd_gn — phase 10 with upsampler_conv='winograd_gn',
                accumulate 1: 1 warm-up + 2 micro-steps; the same checks (K9b
-               16 a micro-step, remat recompute included), ms beside phase 10's.
+               16 a micro-step, remat recompute included), ms and peak memory
+               beside phase 10's.
 Each phase prints its seconds. Then one {"kernels": [...]} line (nine
 kernels: splash is kernel A under the JAX package's splash name), the
 card's name and power limit, and as the last line {"ok": true, "device":
@@ -262,7 +266,10 @@ def kernel_resources(name, entries, smem):
     return "; ".join(out)
 
 
-def check_splat(dev):
+def segment_inputs(dev):
+    """Kernel S's serving inputs: 6 frames at 512^2 of 30k gaussians,
+    sorted into (tile, depth) segments -> (args of composite_segments, N,
+    frames, tiles a frame)."""
     import numpy as np
     import torch
     from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
@@ -293,7 +300,15 @@ def check_splat(dev):
     params, starts, counts = ss.pack_sorted_params(proj, W, H, 512, 4,
                                                    large_cap=2048)
     tx = W // 16
-    args = (params, starts, counts, tx, tx * (H // 16))
+    return (params, starts, counts, tx, tx * (H // 16)), N, F, tx * (H // 16)
+
+
+def check_splat(dev):
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+
+    args, N, F, tpf = segment_inputs(dev)
+    params, starts, counts = args[:3]
     out_k = ss.composite_segments(*args)
     out_p = ss.composite_segments_plain(*args)
     torch.cuda.synchronize()
@@ -310,7 +325,7 @@ def check_splat(dev):
             "ms": time_ms(lambda: ss.composite_segments(*args), 20),
             "plain_ms": time_ms(lambda: ss.composite_segments_plain(*args), 2),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "shape": f"{F} frames x {tx * (H // 16)} tiles, {N} gaussians"}
+            "shape": f"{F} frames x {tpf} tiles, {N} gaussians"}
 
 
 def check_quad(dev):
@@ -506,13 +521,18 @@ def check_tiles(dev):
     reference and 8 novel orbiting views at 1024^2, binned and packed per
     view (K = max_per_tile = 512, window 4 for the reference and 8 for the
     novel views, as the renderer and render_multi_view bin them), all views
-    in one launch."""
+    in one launch, and at one 1296x2304 stage-2 frame: held against the plain
+    version and a second launch (bit for bit), timed beside the bound."""
     import torch
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+
+    print("[kernels] K1 resources: " + kernel_resources(
+        "splat_tiles", {"K1": "tile_composite_kernel"}, {"K1": 0}), flush=True)
 
     N, W, H, F, K = 30000, 1024, 1024, 9, 512
     packed, tx, T, valid = packed_views(dev, W, H, [4] + [8] * (F - 1), K, N)
     out_k = st.composite_tiles(packed, tx, T)
+    again = st.composite_tiles(packed, tx, T)
     out_p = st.composite_tiles_plain(packed, tx, T)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
@@ -520,15 +540,14 @@ def check_tiles(dev):
     print(f"[kernels] K1 splat_tiles: {F} views x {T} tiles, K={K}, {N} gaussians: "
           f"valid (tile, slot) entries {valid} of {padded} padded; "
           f"max|diff|={err:.3e} (tol 1e-5); non-white share "
-          f"{float((out_k < 0.999).float().mean()):.4f}", flush=True)
+          f"{float((out_k < 0.999).float().mean()):.4f}; a second launch bit-identical: "
+          f"{torch.equal(out_k, again)}", flush=True)
     if not err <= 1e-5:
         raise AssertionError(f"kernel K1 disagrees with its plain version: {err}")
-    nbytes = packed.numel() * 4 + out_k.numel() * 4
-    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * valid * st.P, PEAK_FP32_FLOPS, nbytes)
-    padded_ms, _ = bound(SPLAT_OPS_PER_PAIR * padded * st.P, PEAK_FP32_FLOPS, nbytes)
-    ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
-    print(f"[kernels] K1 splat_tiles: {ms:.4f} ms for {F} views, bound {bound_ms:.4f} ms "
-          f"({by}; {padded_ms:.4f} ms if every padded slot counted)", flush=True)
+    if not torch.equal(out_k, again):
+        raise AssertionError("kernel K1 differs between two launches")
+    del again
+    ms, bound_ms, by = time_tiles(packed, tx, T, valid, f"{F} views")
     line = {"name": "splat_tiles", "err": err, "ms": ms,
             "plain_ms": time_ms(lambda: st.composite_tiles_plain(packed, tx, T), 1),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
@@ -536,19 +555,47 @@ def check_tiles(dev):
     del packed, out_k, out_p
     # the stage-2 training frame (28 launches a step, of 1 to 4 frames)
     packed, tx, T, valid = packed_views(dev, 2304, 1296, [4], K, N)
-    err = float((st.composite_tiles(packed, tx, T) - st.composite_tiles_plain(packed, tx, T))
-                .abs().max())
-    nbytes = packed.numel() * 4 + packed.shape[0] * st.P * 3 * 4
-    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * valid * st.P, PEAK_FP32_FLOPS, nbytes)
-    ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
+    out_k = st.composite_tiles(packed, tx, T)
+    again = st.composite_tiles(packed, tx, T)
+    err = float((out_k - st.composite_tiles_plain(packed, tx, T)).abs().max())
     print(f"[kernels] K1 splat_tiles one 1296x2304 frame: {tuple(packed.shape)}, {valid} valid "
-          f"entries; max|diff|={err:.3e} (tol 1e-5); {ms:.4f} ms, bound {bound_ms:.4f} ms ({by})",
-          flush=True)
+          f"entries; max|diff|={err:.3e} (tol 1e-5); a second launch bit-identical: "
+          f"{torch.equal(out_k, again)}", flush=True)
     if not err <= 1e-5:
         raise AssertionError(f"kernel K1 disagrees with its plain version at the frame: {err}")
-    del packed
+    if not torch.equal(out_k, again):
+        raise AssertionError("kernel K1 differs between two launches at the frame")
+    time_tiles(packed, tx, T, valid, "one 1296x2304 frame")
+    del packed, out_k, again
     torch.cuda.empty_cache()
     return line
+
+
+def tiles_bound(packed, valid):
+    """K1's bound on packed (T, 9, K) with `valid` live (tile, slot)
+    entries, as the function's work: 27 operations a (pixel, live slot) pair
+    against the bytes it must move, the opacity row of every slot, the 8
+    other floats of each live slot and the (T, 256, 3) output. Returns that
+    bound, what bounds it and, for comparison, the bound by bytes of the
+    whole packed array (every slot read) and the output."""
+    T, _, K = packed.shape
+    out_bytes = T * 256 * 3 * 4
+    nbytes = T * K * 4 + valid * 8 * 4 + out_bytes
+    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * valid * 256, PEAK_FP32_FLOPS, nbytes)
+    whole_ms, whole_by = bound(0.0, PEAK_FP32_FLOPS, packed.numel() * 4 + out_bytes)
+    return bound_ms, by, whole_ms, whole_by
+
+
+def time_tiles(packed, tx, T, valid, name):
+    """K1's CUDA-event time on packed, printed beside both bounds."""
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    bound_ms, by, whole_ms, whole_by = tiles_bound(packed, valid)
+    ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
+    print(f"[kernels] K1 splat_tiles {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: 27 "
+          f"operations a live (pixel, slot) pair, the opacity rows, the live slots' other "
+          f"floats and the output); the earlier bound, {whole_by} of the whole packed array "
+          f"and the output: {whole_ms:.4f} ms", flush=True)
+    return ms, bound_ms, by
 
 
 def bwd_close(got, ref):
@@ -752,10 +799,15 @@ def check_winograd(dev):
     from audio_motion_avatar_tpu_torch import kernels
     from audio_motion_avatar_tpu_torch.ops import winograd as W
 
-    smem = kernels.library("winograd").winograd_smem()
+    lib = kernels.library("winograd")
+    rect = {"K9a rectangles 32 wide": "winograd_rect_kernelILb0ELi32E",
+            "K9a rectangles 16 wide": "winograd_rect_kernelILb0ELi16E",
+            "K9b rectangles 32 wide": "winograd_rect_kernelILb1ELi32E",
+            "K9b rectangles 16 wide": "winograd_rect_kernelILb1ELi16E"}
     print("[kernels] K9a / K9b resources: " + kernel_resources(
-        "winograd", {"K9a": "winograd_kernelILb0", "K9b": "winograd_kernelILb1"},
-        {"K9a": smem, "K9b": smem}), flush=True)
+        "winograd", {"K9a raster": "winograd_kernel", **rect},
+        {"K9a raster": lib.winograd_smem(0), **{k: lib.winograd_smem(1) for k in rect}}),
+        flush=True)
     g = torch.Generator(device=dev).manual_seed(4)
     C = K = 256
     w = (torch.randn(3, 3, C, K, device=dev, generator=g) / (9 * C) ** 0.5).to(torch.bfloat16)
@@ -906,9 +958,9 @@ def through(name, lib, fn):
 
 
 def compare_parent(dev, parent):
-    """The parent commit's A, K2, A-bwd and K9a / K9b beside this tree's, at
-    every shape of check_attention and check_attention_stage1 (A), of
-    check_tiles_bwd (K2), check_attention_bwd and check_winograd, on the same
+    """The parent commit's A, K1, K2, A-bwd and K9a / K9b beside this tree's,
+    at every shape of check_attention and check_attention_stage1 (A), of
+    check_tiles_bwd (K1, K2), check_attention_bwd and check_winograd, on the same
     inputs, each through this tree's wrapper (`through`: the parent's
     wrappers were the same), in turns (parent, this tree, this tree,
     parent), CUDA-event means of 10 (A) or 5 calls, and for A also the
@@ -916,15 +968,33 @@ def compare_parent(dev, parent):
     call outlasts the kernel) and scaled_dot_product_attention's time (the
     key mask as a boolean attn_mask) as a yardstick; this tree held against
     the parent's outputs under each kernel's rule (A, A-bwd:
-    ops/attention.excess_error; K2: bwd_close; K9a / K9b: max|diff|)."""
+    ops/attention.excess_error; K1: max|diff| and bit-equality; K2: bwd_close;
+    K9a / K9b: max|diff|)."""
     import torch
     import torch.nn.functional as Fn
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
     from audio_motion_avatar_tpu_torch.ops import winograd as W
 
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+
     libs = {name: parent_library(parent, name)
-            for name in ("attention", "splat_tiles_bwd", "attention_bwd", "winograd")}
+            for name in ("splat_segments", "attention", "splat_tiles", "splat_tiles_bwd",
+                         "attention_bwd", "winograd")}
+    # S, whose blend header changed only in its comment: bit-identical
+    args = segment_inputs(dev)[0]
+
+    def new():
+        return ss.composite_segments(*args)
+
+    old = through("splat_segments", libs["splat_segments"], new)
+    same = torch.equal(new(), old())
+    t = [time_ms(f, 10) for f in (old, new, new, old)]
+    print(f"[parent] S serving segments: parent {t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} "
+          f"/ {t[2]:.4f} ms; this tree bit-identical to the parent: {same}", flush=True)
+    if not same:
+        raise AssertionError("kernel S differs from the parent's")
+    del args
     g = torch.Generator(device=dev).manual_seed(7)
 
     def rnd(*shape):
@@ -960,6 +1030,22 @@ def compare_parent(dev, parent):
               f"{excess[1]:.3f}; this tree against the parent's output under the A rule: "
               f"{same:.3f}", flush=True)
         del q, k, v, ref
+        torch.cuda.empty_cache()
+    for name, Wd, Ht, windows in K2_CASES:   # K1 at the same shapes
+        packed, tx, T, valid = packed_views(dev, Wd, Ht, windows)
+
+        def new():
+            return st.composite_tiles(packed, tx, T)
+
+        old = through("splat_tiles", libs["splat_tiles"], new)
+        got, want = new(), old()
+        same, diff = torch.equal(got, want), float((got - want).abs().max())
+        t = [time_ms(f, 5) for f in (old, new, new, old)]
+        print(f"[parent] K1 {name} {tuple(packed.shape)}, {valid} valid entries: parent "
+              f"{t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} / {t[2]:.4f} ms, "
+              f"x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; this tree against the parent's output: "
+              f"max|diff| {diff:.3e}, bit-identical {same}", flush=True)
+        del packed, got, want
         torch.cuda.empty_cache()
     for name, Wd, Ht, windows in K2_CASES:
         packed, tx, T, valid = packed_views(dev, Wd, Ht, windows)
@@ -1012,13 +1098,16 @@ def compare_parent(dev, parent):
             return W.winograd_conv3x3_gn_relu(x, w, b, a, c, padding)
 
         old = through("winograd", libs["winograd"], new)
-        diff = float((new().float() - old().float()).abs().max())
+        got, want = new(), old()
+        diff = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
         t = [time_ms(f, 5) for f in (old, new, new, old)]
         flops = 2.0 * 16 * N * Hh * Wh * C * K
         print(f"[parent] {kern} ({N}, {S}^2, {C}) {padding}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
               f"this tree {t[1]:.4f} / {t[2]:.4f} ms ({flops / min(t[1], t[2]) / 1e9:.1f} "
               f"TFLOP/s), x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; max|diff| against the "
-              f"parent {diff:.3e}", flush=True)
+              f"parent {diff:.3e}, bit-identical {same}", flush=True)
+        del got, want
         del x
         torch.cuda.empty_cache()
 
@@ -1802,6 +1891,7 @@ def run_train(dev, stage, conv="xla"):
                 Wg.winograd_conv3x3, Wg.winograd_conv3x3_gn_relu)
     for fn in counters:
         fn.launches = 0
+    st.composite_tiles.frames = 0
     torch.cuda.reset_peak_memory_stats(dev)
     times, metrics = [], []
     for bid in ids[1:]:
@@ -1811,10 +1901,13 @@ def run_train(dev, stage, conv="xla"):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {fn.__name__: fn.launches for fn in counters}
+    frames = st.composite_tiles.frames
     peak = torch.cuda.max_memory_allocated(dev)
     per = train_launches(cfg, stage, B, T_in, T_out)
     expected = {k: v * len(times) for k, v in per.items()}
-    print(f"[{tag}] launches {launches} expected {expected} ({per} a step)", flush=True)
+    print(f"[{tag}] launches {launches} expected {expected} ({per} a step); K1 composited "
+          f"{frames / len(times):.1f} frames a step in its {launches['composite_tiles'] / len(times):.1f} "
+          f"launches", flush=True)
     for i, (ms, mt) in enumerate(zip(times, metrics)):
         extra = f", cache_iter {mt['cache_iter']:.0f}" if stage == 2 else ""
         print(f"[{tag}] step {i}: {1e3 * ms:.1f} ms, loss {mt['loss']:.5f}, grad_norm "
@@ -1836,7 +1929,7 @@ def run_train(dev, stage, conv="xla"):
         raise AssertionError(f"{tag}: the cache was not reused at batch 12")
     del tr
     torch.cuda.empty_cache()
-    return launches, mean_ms
+    return launches, mean_ms, peak
 
 
 def phase(name, fn, *args, **kwargs):
@@ -1914,12 +2007,14 @@ def main():
         frames_close(got, want, f"reconstruct, winograd_gn {view}")
     phase("8 serve from a reference", serve_from_reference, dev)
     phase("9 small train", check_small_train, dev)
-    (train1, ms1), (train2, _) = (phase("10 train stage 1", run_train, dev, 1),
-                                  phase("11 train stage 2", run_train, dev, 2))
-    train_gn, ms_gn = phase("10b train stage 1, winograd_gn", run_train, dev, 1,
-                            conv="winograd_gn")
-    print(f"[train stage 1, winograd_gn] {ms_gn:.1f} ms a micro-step; phase 10 (direct "
-          f"convs): {ms1:.1f} ms", flush=True)
+    (train1, ms1, peak1), (train2, _, _) = (phase("10 train stage 1", run_train, dev, 1),
+                                            phase("11 train stage 2", run_train, dev, 2))
+    train_gn, ms_gn, peak_gn = phase("10b train stage 1, winograd_gn", run_train, dev, 1,
+                                     conv="winograd_gn")
+    print(f"[train stage 1, winograd_gn] {ms_gn:.1f} ms a micro-step, peak memory "
+          f"{peak_gn / 2**30:.2f} GiB (16.70 GiB before K9b's backward kept its temporaries "
+          f"small, PERF.md); phase 10 (direct convs): {ms1:.1f} ms, {peak1 / 2**30:.2f} GiB",
+          flush=True)
 
     # each kernel's launches on its path: S and Q in the serving rollout
     # (phase 4), K1 and A in the reconstruction (phase 7), K2 and A-bwd in

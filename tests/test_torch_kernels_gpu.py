@@ -373,6 +373,24 @@ def test_tile_bwd_kernel_live_prefix(cuda, K):
     assert float(got[3, :, K - 1].abs().max()) > 0
 
 
+@pytest.mark.parametrize("K", [45, 64, 127, 128, 129, 200])
+def test_tile_kernel_live_prefix(cuda, K):
+    """K1 walks each tile's slots up to its last one of nonzero opacity (the
+    first 128-slot chunk staged by the scan itself): a tile with no live slot
+    (white), all K live, opacity-0 slots inside the live prefix, one live
+    slot at the very end, K below, at and above the 128-slot chunk. Held
+    against the plain version (which walks every slot) at 1e-5, and two
+    launches agree bit for bit."""
+    packed, tx, T = _live_prefix_tiles(cuda, K)
+    got = st.composite_tiles(packed, tx, T)
+    again = st.composite_tiles(packed, tx, T)
+    want = st.composite_tiles_plain(packed, tx, T)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, again)
+    assert bool((got[0] == 1.0).all()) and bool((got[3] < 0.999).any())
+
+
 def test_composite_tiles_function_on_the_card(cuda):
     """CompositeTiles launches K1 forward and K2 backward and gives the
     CPU's gradient (both plain versions there)."""
@@ -461,12 +479,25 @@ def test_attention_bwd_wrapper_validates(cuda):
                                            ("VALID", (5, 20, 18, 256)),
                                            ("SAME", (7, 8, 8, 128)),
                                            ("VALID", (300, 20, 20, 256)),
-                                           ("VALID", (40, 20, 20, 128))])
+                                           ("VALID", (40, 20, 20, 128)),
+                                           ("SAME", (2, 40, 70, 128)),
+                                           ("VALID", (2, 36, 70, 256)),
+                                           ("SAME", (1, 20, 32, 256)),
+                                           ("SAME", (1, 18, 34, 128)),
+                                           ("SAME", (2, 16, 64, 128)),
+                                           ("SAME", (1, 32, 32, 256))])
 def test_winograd_kernels_match_plain(cuda, gn, padding, shape):
     """K9a / K9b at tile counts that are not a multiple of the block's 128
-    tiles (180, 360, 112, 24300, 3240), blocks that span images (7 images
-    of 16 tiles; the serving path's VALID convs of many 20^2 windows), the
-    SAME border (with GN: zero after the affine), K = 128 and 256."""
+    tiles (180, 360, 112, 24300, 3240), blocks that span images (K9a: 7
+    images of 16 tiles; the serving path's VALID convs of many 20^2
+    windows), the SAME border (with GN: zero after the affine), K = 128 and
+    256; and the rectangle kernel's 2 x 32 and 4 x 16 tile rectangles: rows
+    of 35 and 34 tiles that fill one 32-wide rectangle and spill into a
+    second, 16 tiles wide (the 16-wide rectangle) and 17 (the 32-wide one),
+    tile-row counts that leave the last rectangle part empty (17, 9, 10, 6),
+    odd rectangle counts (a cluster block without tiles: 7, 3, 5); images
+    the rectangles tile exactly (8 x 32 and 16 x 16 tiles), where K9a also
+    runs the rectangle kernel."""
     g = torch.Generator(device=cuda).manual_seed(5)
     N, C = shape[0], shape[-1]
     K = 128 if C == 256 else 256

@@ -124,6 +124,32 @@ def test_function_gradients_match_jax(padding):
                                        atol=1e-3 * float(np.abs(rv).max()), err_msg=name)
 
 
+@pytest.mark.parametrize("padding,shape", SHAPES)
+def test_gn_backward_keeps_the_unfused_formula(padding, shape):
+    """WinogradConv3x3GnRelu's backward, which works in place and frees its
+    full-size temporaries, gives the unfused formula's gradients bit for bit
+    (bf16 operands, fp32 a / c, a seeded output gradient)."""
+    x, w, b, a, c = (torch.as_tensor(v) for v in _inputs(shape, 3))
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    a.requires_grad_(True)
+    c.requires_grad_(True)
+    y = W.WinogradConv3x3GnRelu.apply(x, w, b, a, c, padding)
+    g = torch.as_tensor(np.random.RandomState(4).randn(*y.shape).astype(np.float32))
+    y.backward(g.to(y.dtype))
+    with torch.no_grad():
+        z = x.float() * a.float()[:, None, None, :] + c.float()[:, None, None, :]
+        h = torch.relu(z).to(x.dtype)
+        dh, dw, db = W._conv_vjp(h, w, padding, g.to(y.dtype))
+        dz = dh.float() * (z > 0)
+        want = ((dz * a.float()[:, None, None, :]).to(x.dtype), dw.to(w.dtype), db.to(b.dtype),
+                (dz * x.float()).sum(dim=(1, 2)), dz.sum(dim=(1, 2)))
+    for name, v, ref in zip("xwbac", (x, w, b, a, c), want):
+        assert v.grad.dtype == ref.dtype and torch.equal(v.grad, ref), name
+
+
 @pytest.mark.parametrize("C,K", [(128, 128), (256, 128), (128, 256)])
 def test_kernel_u_is_the_bf16_transform_in_the_kernels_layout(C, K):
     """csrc/winograd.cu reads U by TMA as contiguous bf16 (16, C, K) boxes:
