@@ -10,55 +10,42 @@
 // array and composited by ONE launch, the tile origin taken from
 // tile % tiles_per_frame as the TPU kernel's scalar-prefetched `ntpf`.
 //
-// The rule is the TPU kernel's: alpha = min(op * exp(min(power, 0)), 0.99),
-// zeroed where power > 0 or alpha < 1/255; a weight is dropped where
-// T_after < 1e-4, but log(1 - alpha) keeps accumulating (no 3DGS early exit)
-// and T_final multiplies the white background; the output is clamped to
-// [0, 1]. The TPU kernel forms the transmittance with a triangular-matmul
-// prefix sum; the sequential sum here differs from it only in rounding.
+// Bound on the H100: the fp32 operations that the rule needs on these
+// inputs at 67 TFLOP/s (a (pixel, live slot) pair 12 where it is far, 15
+// where it is dropped otherwise, 19 where it is kept with its weight
+// dropped, 27 where it is blended: splat_segments.cu, chip_smoke.py
+// walk_operations), against the bytes it must move: the opacity row of
+// every slot, the 8 other floats of each live slot, and the (T, 256, 3)
+// output.
 //
-// Bound on the H100: 27 fp32 operations a (pixel, live slot) pair (the
-// function's work: dx, dy, power, the alpha rule, log1p, exp, the weight and
-// three colour sums) at 67 TFLOP/s, against the bytes it must move: the
-// opacity row of every slot, the 8 other floats of each live slot, and the
-// (T, 256, 3) output.
-//
-// Design: one block per 16x16 tile, one thread per pixel, and only the work
-// that changes a result; each step is an exact identity, so the output
-// equals the plain version's sequential blend (and the first, all-slot
-// version of this kernel) bit for bit.
+// Design: one block per 16x16 tile, one thread per pixel, the walk of
+// splat_walk.cuh (shared with kernel S: the rule, dropped and far pairs
+// skipped, T carried from kept slot to kept slot, three float4 a staged
+// slot), and
+// only the slots that can change a result; each step is an exact identity,
+// so the output equals the plain version's sequential blend (and the first,
+// all-slot version of this kernel) bit for bit.
 //   - The live prefix (splat_live.cuh, shared with K2): one read of the
 //     opacity row and a block max find the last slot of nonzero opacity;
 //     the block stages and walks only up to it. A tile with no live slot
 //     writes white (T_final = 1) and stops.
-//   - Dropped pairs. Where power > 0 or alpha < 1/255 the pair adds
-//     log1p(-0) = -0 to log T and weight 0 to the colour: the thread skips
-//     everything but the test.
-//   - Each exp once. T = exp(log T) is carried from one kept slot to the next
-//     (a kept slot's T after is the next kept slot's T before: dropped slots
-//     leave log T as it is), so a kept pair pays one exp(power), one log1p
-//     and one exp.
-//   - No early exit on T. A pixel under T 1e-4 still sums log(1 - alpha) of
-//     every kept slot, since T_final multiplies the background.
-//   - Staging. Up to CH live slots a chunk go to shared memory as three
-//     float4 a slot, (mx, my, cxx, cxy), (cyy, op, r, g), (b, -, -, -): the
-//     test reads two broadcast 16-byte loads, a kept pair one more. The
-//     first chunk is staged by the scan itself (a slot of nonzero opacity
-//     reads its other 8 parameters as soon as its opacity arrives), so that
-//     a tile of at most CH live slots waits for device memory twice, not
+//   - Staging. Up to CH live slots a chunk go to shared memory. The first
+//     chunk is staged by the scan itself (a slot of nonzero opacity reads
+//     its other 8 parameters as soon as its opacity arrives), so that a
+//     tile of at most CH live slots waits for device memory twice, not
 //     three times, and passes one barrier.
-// Built with --fmad=false, so that every product and sum rounds as the plain
-// PyTorch version (ops/splat.py blend_tiles_plain) does, operation for
-// operation.
+// Built with --fmad=false (see splat_walk.cuh).
 
 #include <cuda_runtime.h>
 
 #include "splat_live.cuh"
+#include "splat_walk.cuh"
 
 // Phase probe, compiled only with -DSPLAT_TILES_PROBE (kernel_probe.py
 // builds such a library apart): a mask in device memory skips the walk (1)
-// and the staging (2), so that what is left can be timed; the output is
-// then meaningless.
+// and the staging (2), so that what is left can be timed (the output is
+// then meaningless), or (4) walks without the far-pair cut (splat_walk.cuh
+// FAR_CUT).
 #ifdef SPLAT_TILES_PROBE
 __device__ int g_probe_skip;
 #define PROBE_SKIP(bit) ((g_probe_skip & (bit)) != 0)
@@ -71,18 +58,12 @@ extern "C" int splat_tiles_probe_set(int mask) {
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;   // pixels per tile = threads per block
-constexpr int NPARAM = 9;        // mx, my, cxx, cxy, cyy, opacity, r, g, b
-constexpr int CH = 128;          // live slots staged a chunk
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
+using namespace splat_walk;
 
 __global__ void __launch_bounds__(P) tile_composite_kernel(const float* __restrict__ params,
                                                             int K, int tx, int tiles_per_frame,
                                                             float* __restrict__ out) {
-  __shared__ float4 sp[CH][3];
+  __shared__ Chunk sp;
   __shared__ int warp_max[P / 32];
   const int t = blockIdx.x;
   const float* tp = params + (long long)t * NPARAM * K;
@@ -100,21 +81,14 @@ __global__ void __launch_bounds__(P) tile_composite_kernel(const float* __restri
       for (int row = 0; row < NPARAM; ++row)
         if (row != 5) v[row] = tp[(long long)row * K + k];
     }
-    sp[k][0] = make_float4(v[0], v[1], v[2], v[3]);
-    sp[k][1] = make_float4(v[4], v[5], v[6], v[7]);
-    sp[k][2].x = v[8];
+    stage(sp, k, v);
   });
   if (live == 0) {
-    for (int i = threadIdx.x; i < P * 3; i += P) o[i] = 1.f;
+    store_white(o);
     return;
   }
 
-  const int tid = t % tiles_per_frame;
-  const int pix = threadIdx.x;
-  const float px = (float)(pix % TILE) + (float)((tid % tx) * TILE);
-  const float py = (float)(pix / TILE) + (float)((tid / tx) * TILE);
-  float logT = 0.f, T = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-
+  Pixel px(t, tx, tiles_per_frame);
   for (int base = 0; base < live; base += CH) {
     const int n = min(CH, live - base);
     if (base > 0) {   // the first chunk was staged by the scan
@@ -124,28 +98,12 @@ __global__ void __launch_bounds__(P) tile_composite_kernel(const float* __restri
           reinterpret_cast<float*>(sp[j])[row] = tp[(long long)row * K + base + j];
       __syncthreads();
     }
-    for (int j = 0; j < (PROBE_SKIP(1) ? 0 : n); ++j) {
-      const float4 a = sp[j][0], b = sp[j][1];
-      const float dx = px - a.x;
-      const float dy = py - a.y;
-      const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
-      const float alpha = fminf(b.y * expf(fminf(power, 0.f)), ALPHA_MAX);
-      if (power > 0.f || alpha < ALPHA_MIN) continue;   // dropped: nothing changes
-      const float logT_after = logT + log1pf(-alpha);
-      const float T_after = expf(logT_after);
-      if (!(T_after < T_EPS)) {
-        const float w = alpha * T;
-        acc_r = acc_r + w * b.z;
-        acc_g = acc_g + w * b.w;
-        acc_b = acc_b + w * sp[j][2].x;
-      }
-      logT = logT_after;
-      T = T_after;
-    }
+    if (PROBE_SKIP(4))
+      px.walk<false>(sp, n);
+    else
+      px.walk(sp, PROBE_SKIP(1) ? 0 : n);
   }
-  o[pix * 3 + 0] = fminf(fmaxf(acc_r + T, 0.f), 1.f);
-  o[pix * 3 + 1] = fminf(fmaxf(acc_g + T, 0.f), 1.f);
-  o[pix * 3 + 2] = fminf(fmaxf(acc_b + T, 0.f), 1.f);
+  px.store(o);
 }
 
 }  // namespace

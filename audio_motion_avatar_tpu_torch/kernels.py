@@ -34,7 +34,7 @@ KERNELS = {
     "splat_segments": (
         "splat_segments.cu", ("--fmad=false",),
         {"splat_segments_launch": (
-            [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _P, _P], _I)}),
+            [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _P, _P, _P], _I)}),
     "quad_rows": (
         "quad_rows.cu", (),
         {"quad_rows_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I)}),
@@ -129,8 +129,9 @@ def build(names: Optional[Iterable[str]] = None,
 
 
 def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
-    """{kernel entry (mangled): {registers, spill_stores, spill_loads,
-    stack}} from the output of a build with `-Xptxas -v`."""
+    """{kernel entry (mangled): {registers, smem (static shared memory
+    bytes), spill_stores, spill_loads, stack}} from the output of a build
+    with `-Xptxas -v`."""
     usage: Dict[str, Dict[str, int]] = {}
     entry = None
     for line in log.splitlines():
@@ -149,6 +150,9 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             usage[entry]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            usage[entry]["smem"] = int(m.group(1))
     return usage
 
 

@@ -205,9 +205,11 @@ def slot_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
 def blend_tiles_plain(slot, n_slots: int, n_tiles: int, tx: int,
                       tiles_per_frame: int, device,
                       dtype=torch.float32) -> torch.Tensor:
-    """The plain version of the kernels' per-tile blend (S and K1): the
-    same sequential front-to-back rule, operation for operation, vectorised
-    over tiles and pixels, one gaussian slot per step. slot(j) -> (9, T)
+    """The plain version of the per-tile walk that kernels S and K1 share
+    (csrc/splat_walk.cuh): the same sequential front-to-back rule,
+    operation for operation, vectorised over tiles and pixels, one gaussian
+    slot per step; every pair is blended here, where the kernels skip the
+    dropped ones (an identity, tests/test_torch_splat.py). slot(j) -> (9, T)
     params [mx, my, cxx, cxy, cyy, op, r, g, b] of slot j of every tile
     (op 0 where a tile has no gaussian there) -> (T, 256, 3)."""
     P = TILE * TILE

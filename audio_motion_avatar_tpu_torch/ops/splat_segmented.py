@@ -162,12 +162,13 @@ def composite_segments(params: torch.Tensor, starts: torch.Tensor,
                 or t.device != params.device:
             raise ValueError(f"composite_segments: {name} must be contiguous "
                              f"({T},) int32 on {params.device}")
+    order = torch.empty(T, dtype=torch.int32, device=params.device)   # the kernel's scratch
     out = torch.empty(T, P, 3, dtype=torch.float32, device=params.device)
     lib = kernels.library("splat_segments")
     rc = lib.splat_segments_launch(
         params.data_ptr(), params.shape[1], starts.data_ptr(),
-        counts.data_ptr(), T, tx, tiles_per_frame, out.data_ptr(),
-        kernels.stream_ptr(params.device))
+        counts.data_ptr(), T, tx, tiles_per_frame, order.data_ptr(),
+        out.data_ptr(), kernels.stream_ptr(params.device))
     kernels.check(rc, "splat_segments")
     composite_segments.launches += 1
     return out
@@ -184,6 +185,25 @@ def tiles_to_image(tiles: torch.Tensor, tx: int, ty: int) -> torch.Tensor:
     return img.reshape(*lead, ty * TILE, tx * TILE, 3)
 
 
+def pack_frames_segmented(xyz: torch.Tensor, rot: torch.Tensor,
+                          raw_scales: torch.Tensor, raw_opacity: torch.Tensor,
+                          colors: torch.Tensor, K: torch.Tensor, E: torch.Tensor,
+                          width: int, height: int, max_per_tile: int = 512,
+                          max_window: int = 8, large_cap: int = 0):
+    """F frames of gaussians (F, N, ...) + cameras (F, 3, 3)/(F, 4, 4) ->
+    kernel S's inputs (params, starts, counts): projection and sorted
+    binning. RGB colours (the rgb=True renderer)."""
+    if width % TILE or height % TILE:
+        raise ValueError(f"image size {width}x{height} must be a multiple of {TILE}")
+    cam = make_camera(K, E, width, height)
+    o = raw_opacity[..., 0] if raw_opacity.dim() == 3 else raw_opacity
+    proj = project_gaussians(xyz, rot, activate_scales(raw_scales),
+                             activate_opacity(o), torch.clamp(colors, 0.0, 1.0),
+                             cam)
+    return pack_sorted_params(proj, width, height, max_per_tile, max_window,
+                              large_cap=large_cap)
+
+
 def render_frames_segmented(xyz: torch.Tensor, rot: torch.Tensor,
                             raw_scales: torch.Tensor,
                             raw_opacity: torch.Tensor, colors: torch.Tensor,
@@ -194,15 +214,9 @@ def render_frames_segmented(xyz: torch.Tensor, rot: torch.Tensor,
     """F frames of gaussians (F, N, ...) + cameras (F, 3, 3)/(F, 4, 4) ->
     images (F, H, W, 3): projection, sorted binning and ONE composite
     launch over all frames' tiles. RGB colours (the rgb=True renderer)."""
-    if width % TILE or height % TILE:
-        raise ValueError(f"image size {width}x{height} must be a multiple of {TILE}")
+    params, starts, counts = pack_frames_segmented(
+        xyz, rot, raw_scales, raw_opacity, colors, K, E, width, height,
+        max_per_tile, max_window, large_cap)
     tx, ty = width // TILE, height // TILE
-    cam = make_camera(K, E, width, height)
-    o = raw_opacity[..., 0] if raw_opacity.dim() == 3 else raw_opacity
-    proj = project_gaussians(xyz, rot, activate_scales(raw_scales),
-                             activate_opacity(o), torch.clamp(colors, 0.0, 1.0),
-                             cam)
-    params, starts, counts = pack_sorted_params(
-        proj, width, height, max_per_tile, max_window, large_cap=large_cap)
     tiles = composite_segments(params, starts, counts, tx, tx * ty)
     return tiles_to_image(tiles.reshape(xyz.shape[0], tx * ty, P, 3), tx, ty)

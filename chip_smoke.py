@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
                A-bwd and K9a / K9b);
   2. kernels — calls each kernel's wrapper at the serving path's shapes and
                holds it against its plain PyTorch version on the same inputs:
-               S (segmented splat, 6 frames at 512^2, 30k gaussians): max|diff| <= 1e-5;
+               S (segmented splat, 6 frames at 512^2, 30k gaussians): max|diff| <= 1e-5
+               and a second launch bit for bit;
                Q (quad rows, (18, 256, 16, 16, 256) bf16): bit-exact;
                A (attention, (2, 8, 6304, 64), its q_tail and the PTv3
                masked patches (354, 4, 512, 64), bf16) against the fp32
@@ -50,7 +51,7 @@ Phases (any failure exits non-zero):
                K9a / K9b built into build/parent/ and timed, through this
                tree's wrappers, beside this tree's at every shape of their
                checks, in turns (earlier, this, this, earlier), each output
-               held against the earlier one (S must be bit-identical);
+               held against the earlier one (S and K1 must be bit-identical);
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -131,10 +132,15 @@ import time
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
-# fp32 operations per (pixel, gaussian) pair of kernel S: dx, dy (2), power
-# (9), min / exp / scale / min (4), 2 compares, log1p + add (2), exp +
-# compare (2), weight (2), 3 colour multiply-adds (6)
+# fp32 operations a (pixel, gaussian) pair of the splat walk (kernels S
+# and K1) needs, by what the rule makes of it (walk_operations). Blended:
+# dx, dy (2), power (9), exp and its scale by the opacity (2), 2 compares
+# (the drop test), the 0.99 clamp (1), log1p + add (2), T's exp + the 1e-4
+# compare (2), weight (1), 3 colour multiply-adds (6)
 SPLAT_OPS_PER_PAIR = 27
+SPLAT_OPS_FAR = 2 + 9 + 1           # power < -5.6 (opacity <= 1): dropped before its exp
+SPLAT_OPS_DROPPED = 2 + 9 + 2 + 2   # dropped by the test
+SPLAT_OPS_UNWEIGHTED = 15 + 1 + 2 + 1   # kept, T after it under 1e-4: no weight
 # ... and of K2's function, counted as the gradient needs it and not as
 # this kernel does it: one forward recompute (27: the clip mask and T_final
 # need the whole blend) and one backward walk that evaluates each alpha once:
@@ -261,7 +267,8 @@ def kernel_resources(name, entries, smem):
         u = next((v for k, v in usage.items() if key in k), None)
         regs = "not in this run's build log" if u is None else (
             f"{u.get('registers')} registers, {u.get('spill_stores')} bytes spill stores, "
-            f"{u.get('spill_loads')} bytes spill loads")
+            f"{u.get('spill_loads')} bytes spill loads, {u.get('smem', 0)} bytes static "
+            "shared memory")
         out.append(f"{label}: {regs}, {smem[label]} bytes dynamic shared memory")
     return "; ".join(out)
 
@@ -307,20 +314,28 @@ def check_splat(dev):
     import torch
     from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
 
+    print("[kernels] S resources: " + kernel_resources(
+        "splat_segments", {"S": "seg_composite_kernel", "S order": "seg_order_kernel"},
+        {"S": 0, "S order": 0}), flush=True)
     args, N, F, tpf = segment_inputs(dev)
     params, starts, counts = args[:3]
     out_k = ss.composite_segments(*args)
+    again = ss.composite_segments(*args)
     out_p = ss.composite_segments_plain(*args)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     print(f"[kernels] S splat_segments: tiles={starts.shape[0]} "
-          f"segment entries={int(counts.sum())} max|diff|={err:.3e} (tol 1e-5)",
-          flush=True)
+          f"segment entries={int(counts.sum())} max|diff|={err:.3e} (tol 1e-5); a second "
+          f"launch bit-identical: {torch.equal(out_k, again)}", flush=True)
     if not err <= 1e-5:
         raise AssertionError(f"kernel S disagrees with its plain version: {err}")
-    pairs = float(counts.sum()) * ss.P
-    nbytes = (params.numel() * 4 + starts.numel() * 8 + out_k.numel() * 4)
-    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * pairs, PEAK_FP32_FLOPS, nbytes)
+    if not torch.equal(out_k, again):
+        raise AssertionError("kernel S differs between two launches")
+    bound_ms, by, classes, every_ms, old_ms = segments_bound(*args)
+    print(f"[kernels] S bound {bound_ms:.4f} ms ({by}: {classes}; 36 bytes a segment entry, "
+          f"starts and counts at 4 bytes, the output); at 27 operations every pair "
+          f"{every_ms:.4f} ms, and with all of params and starts at 8 bytes {old_ms:.4f} ms",
+          flush=True)
     return {"name": "splat_segments", "err": err,
             "ms": time_ms(lambda: ss.composite_segments(*args), 20),
             "plain_ms": time_ms(lambda: ss.composite_segments_plain(*args), 2),
@@ -478,6 +493,73 @@ def check_attention_stage1(dev):
     return times
 
 
+def walk_operations(slot, n_slots, n_tiles, tx, tiles_per_frame, device):
+    """The fp32 operations that the splat walk's rule needs on these inputs:
+    each tile's slots followed in order, as the plain version
+    (ops/splat.py blend_tiles_plain) follows them, and every (pixel, slot)
+    pair of a slot that holds a gaussian counted by its class: far
+    (SPLAT_OPS_FAR), dropped otherwise (SPLAT_OPS_DROPPED), kept with T
+    after it under 1e-4 (SPLAT_OPS_UNWEIGHTED) or blended
+    (SPLAT_OPS_PER_PAIR). slot(j) -> ((9, T) params of slot j of every
+    tile, opacity 0 where a tile has none; (T,) bool, the tiles that hold
+    one). Returns (operations, {class: pairs})."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import splat as sp
+
+    px, py = sp.tile_pixels(n_tiles, tx, tiles_per_frame, device)
+    logT = torch.zeros(n_tiles, 256, device=device)
+    n = torch.zeros(4, dtype=torch.int64, device=device)
+    for j in range(n_slots):
+        g, held = slot(j)
+        power, alpha, keep = (sp.slot_alpha(g, px, py)[i] for i in (2, 5, 6))
+        held = held[:, None]
+        far = (power < -5.6) & (g[5] <= 1.0)[:, None] & held
+        kept = keep & held
+        logT = logT + torch.log1p(-alpha)   # alpha 0 where dropped: log T unchanged
+        weighted = kept & ~(torch.exp(logT) < sp.T_EPS)
+        n += torch.stack([far.sum(), (held & ~far & ~keep).sum(), (kept & ~weighted).sum(),
+                          weighted.sum()])
+    pairs = dict(zip(("far", "dropped", "unweighted", "blended"), n.tolist()))
+    ops = (SPLAT_OPS_FAR * pairs["far"] + SPLAT_OPS_DROPPED * pairs["dropped"]
+           + SPLAT_OPS_UNWEIGHTED * pairs["unweighted"] + SPLAT_OPS_PER_PAIR * pairs["blended"])
+    return ops, pairs
+
+
+def pair_classes(ops, pairs):
+    total = sum(pairs.values())
+    return (f"{ops / total:.2f} operations a pair on average: of {total} pairs "
+            + ", ".join(f"{k} {v / total:.4f}" for k, v in pairs.items()))
+
+
+def segments_bound(params, starts, counts, tx, tiles_per_frame):
+    """S's bound on these inputs, as the function's work: the operations
+    that its pairs need (walk_operations) against the bytes it must move,
+    the 9 floats of every segment entry, starts and counts at 4 bytes a
+    tile and the (T, 256, 3) output. Returns that bound, what bounds it, the
+    pair classes and, for comparison, the bound at 27 operations every
+    pair and that with the bytes counted before (all of params, every
+    emitted entry, and starts at 8 bytes)."""
+    import torch
+    s64, c64 = starts.long(), counts.long()
+
+    def slot(j):
+        held = j < c64
+        g = params[:, torch.where(held, s64 + j, 0)].clone()
+        g[5] = torch.where(held, g[5], torch.zeros_like(g[5]))
+        return g, held
+
+    ops, pairs = walk_operations(slot, int(counts.max()), starts.numel(), tx,
+                                 tiles_per_frame, params.device)
+    entries = int(counts.sum())
+    out_bytes = starts.numel() * 256 * 3 * 4
+    nbytes = entries * 9 * 4 + (starts.numel() + counts.numel()) * 4 + out_bytes
+    bound_ms, by = bound(ops, PEAK_FP32_FLOPS, nbytes)
+    every_ms, _ = bound(SPLAT_OPS_PER_PAIR * entries * 256, PEAK_FP32_FLOPS, nbytes)
+    old_ms, _ = bound(SPLAT_OPS_PER_PAIR * entries * 256, PEAK_FP32_FLOPS,
+                      params.numel() * 4 + starts.numel() * 8 + out_bytes)
+    return bound_ms, by, pair_classes(ops, pairs), every_ms, old_ms
+
+
 def packed_views(dev, W, H, windows, K=512, N=30000):
     """30k body-like gaussians seen by len(windows) orbiting views at W x H,
     binned and packed per view (K = max_per_tile slots, each view's binning
@@ -571,30 +653,35 @@ def check_tiles(dev):
     return line
 
 
-def tiles_bound(packed, valid):
+def tiles_bound(packed, valid, tx, tiles_per_frame):
     """K1's bound on packed (T, 9, K) with `valid` live (tile, slot)
-    entries, as the function's work: 27 operations a (pixel, live slot) pair
-    against the bytes it must move, the opacity row of every slot, the 8
-    other floats of each live slot and the (T, 256, 3) output. Returns that
-    bound, what bounds it and, for comparison, the bound by bytes of the
-    whole packed array (every slot read) and the output."""
+    entries, as the function's work: the operations that its live pairs
+    need (walk_operations) against the bytes it must move, the opacity row
+    of every slot, the 8 other floats of each live slot and the (T, 256, 3)
+    output. Returns that bound, what bounds it, the pair classes and, for
+    comparison, the bound at 27 operations every live pair."""
     T, _, K = packed.shape
-    out_bytes = T * 256 * 3 * 4
-    nbytes = T * K * 4 + valid * 8 * 4 + out_bytes
-    bound_ms, by = bound(SPLAT_OPS_PER_PAIR * valid * 256, PEAK_FP32_FLOPS, nbytes)
-    whole_ms, whole_by = bound(0.0, PEAK_FP32_FLOPS, packed.numel() * 4 + out_bytes)
-    return bound_ms, by, whole_ms, whole_by
+    live = packed[:, 5] != 0
+    n_slots = int(live.any(0).nonzero().max()) + 1 if bool(live.any()) else 0
+    ops, pairs = walk_operations(lambda j: (packed[:, :, j].T, live[:, j]), n_slots, T, tx,
+                                 tiles_per_frame, packed.device)
+    if sum(pairs.values()) != valid * 256:
+        raise AssertionError(f"K1's bound: {sum(pairs.values())} pairs of nonzero opacity, "
+                             f"{valid} valid entries")
+    nbytes = T * K * 4 + valid * 8 * 4 + T * 256 * 3 * 4
+    bound_ms, by = bound(ops, PEAK_FP32_FLOPS, nbytes)
+    every_ms, _ = bound(SPLAT_OPS_PER_PAIR * valid * 256, PEAK_FP32_FLOPS, nbytes)
+    return bound_ms, by, pair_classes(ops, pairs), every_ms
 
 
 def time_tiles(packed, tx, T, valid, name):
-    """K1's CUDA-event time on packed, printed beside both bounds."""
+    """K1's CUDA-event time on packed, printed beside its bound."""
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
-    bound_ms, by, whole_ms, whole_by = tiles_bound(packed, valid)
+    bound_ms, by, classes, every_ms = tiles_bound(packed, valid, tx, T)
     ms = time_ms(lambda: st.composite_tiles(packed, tx, T), 10)
-    print(f"[kernels] K1 splat_tiles {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: 27 "
-          f"operations a live (pixel, slot) pair, the opacity rows, the live slots' other "
-          f"floats and the output); the earlier bound, {whole_by} of the whole packed array "
-          f"and the output: {whole_ms:.4f} ms", flush=True)
+    print(f"[kernels] K1 splat_tiles {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+          f"{classes}; the opacity rows, the live slots' other floats and the output); at 27 "
+          f"operations every live pair {every_ms:.4f} ms", flush=True)
     return ms, bound_ms, by
 
 
@@ -957,18 +1044,48 @@ def through(name, lib, fn):
     return run
 
 
+def parent_segments(parent, lib, args):
+    """A call of the parent's kernel S (lib) on args, those of
+    composite_segments: through this tree's wrapper where the parent's
+    launch takes the tile order's scratch as this tree's does, else (before
+    the tile order) with its own signature and the same output."""
+    import ctypes
+    import torch
+    from audio_motion_avatar_tpu_torch import kernels
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+
+    with open(os.path.join(parent, "audio_motion_avatar_tpu_torch", "csrc",
+                           "splat_segments.cu")) as f:
+        if "int* order, float* out" in f.read():
+            return through("splat_segments", lib, lambda: ss.composite_segments(*args))
+    launch = lib.splat_segments_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    launch.argtypes, launch.restype = [P, ctypes.c_longlong, P, P, I, I, I, P, P], I
+    params, starts, counts, tx, tiles_per_frame = args
+
+    def run():
+        out = torch.empty(starts.shape[0], 256, 3, device=params.device)
+        kernels.check(launch(params.data_ptr(), params.shape[1], starts.data_ptr(),
+                             counts.data_ptr(), starts.shape[0], tx, tiles_per_frame,
+                             out.data_ptr(), kernels.stream_ptr(params.device)),
+                      "parent splat_segments")
+        return out
+    return run
+
+
 def compare_parent(dev, parent):
-    """The parent commit's A, K1, K2, A-bwd and K9a / K9b beside this tree's,
-    at every shape of check_attention and check_attention_stage1 (A), of
-    check_tiles_bwd (K1, K2), check_attention_bwd and check_winograd, on the same
-    inputs, each through this tree's wrapper (`through`: the parent's
-    wrappers were the same), in turns (parent, this tree, this tree,
+    """The parent commit's S, A, K1, K2, A-bwd and K9a / K9b beside this
+    tree's, at S's serving shape and at every shape of check_attention and
+    check_attention_stage1 (A), of check_tiles_bwd (K1, K2),
+    check_attention_bwd and check_winograd, on the same inputs, each
+    through this tree's wrapper (`through`: the parent's wrappers were the
+    same), in turns (parent, this tree, this tree,
     parent), CUDA-event means of 10 (A) or 5 calls, and for A also the
     device time alone (graph_ms: at the small shapes the host's work per
     call outlasts the kernel) and scaled_dot_product_attention's time (the
     key mask as a boolean attn_mask) as a yardstick; this tree held against
     the parent's outputs under each kernel's rule (A, A-bwd:
-    ops/attention.excess_error; K1: max|diff| and bit-equality; K2: bwd_close;
+    ops/attention.excess_error; S, K1: bit-equality; K2: bwd_close;
     K9a / K9b: max|diff|)."""
     import torch
     import torch.nn.functional as Fn
@@ -981,13 +1098,14 @@ def compare_parent(dev, parent):
     libs = {name: parent_library(parent, name)
             for name in ("splat_segments", "attention", "splat_tiles", "splat_tiles_bwd",
                          "attention_bwd", "winograd")}
-    # S, whose blend header changed only in its comment: bit-identical
+    # S, redesigned on the walk it shares with K1: each cut an identity, so
+    # bit-identical to the parent's
     args = segment_inputs(dev)[0]
 
     def new():
         return ss.composite_segments(*args)
 
-    old = through("splat_segments", libs["splat_segments"], new)
+    old = parent_segments(parent, libs["splat_segments"], args)
     same = torch.equal(new(), old())
     t = [time_ms(f, 10) for f in (old, new, new, old)]
     print(f"[parent] S serving segments: parent {t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} "
@@ -1045,6 +1163,8 @@ def compare_parent(dev, parent):
               f"{t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} / {t[2]:.4f} ms, "
               f"x{min(t[0], t[3]) / min(t[1], t[2]):.2f}; this tree against the parent's output: "
               f"max|diff| {diff:.3e}, bit-identical {same}", flush=True)
+        if not same:
+            raise AssertionError(f"kernel K1 differs from the parent's at {name}")
         del packed, got, want
         torch.cuda.empty_cache()
     for name, Wd, Ht, windows in K2_CASES:
@@ -1294,7 +1414,8 @@ def profile_rollout(roll, tri, smpl, req, tag="profile"):
         B, T = out_smpl.shape[:2]
         pred, ms_dec = timed(lambda: reshape_params(model.smpl_decoder(
             out_smpl.reshape((B * T,) + out_smpl.shape[2:])), (B, T)))
-        _, ms_render = timed(lambda: model.renderer(roll.statics, out_tri, cams, pred))
+        (_, gs), ms_render = timed(lambda: model.renderer(roll.statics, out_tri, cams, pred))
+        n_entries = segment_entries(model.renderer.cfg, gs, cams)
     print(f"[{tag}] stages: audio rollout {ms_audio:.1f} ms, SMPL-X decoder "
           f"{ms_dec:.1f} ms, renderer {ms_render:.1f} ms", flush=True)
 
@@ -1312,6 +1433,26 @@ def profile_rollout(roll, tri, smpl, req, tag="profile"):
     top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, count) in top:
         print(f"[{tag}]   {us / 1e3:9.3f} ms {count:5d}x  {name[:110]}", flush=True)
+    s_us = sum(t for k, (t, _) in dev_us.items() if "seg_composite_kernel" in k)
+    s_n = sum(n for k, (_, n) in dev_us.items() if "seg_composite_kernel" in k)
+    print(f"[{tag}] kernel S: {s_us / 1e3:.4f} ms in {s_n} launches, {n_entries} segment "
+          f"entries (the staged run's gaussians binned again); {s_us / 1e3 / busy:.5f} of the kernels' time, {s_us / 1e3 / wall:.5f} of "
+          f"the request", flush=True)
+
+
+def segment_entries(cfg, gaussians, cams):
+    """The segment entries kernel S takes for the renderer's gaussians
+    (BT, N, ...) of one request: its binning again, all frames at once (a
+    tile's count does not depend on the launch that holds its frame)."""
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+
+    H, W = cfg.image_size
+    counts = ss.pack_frames_segmented(
+        gaussians["xyz"], gaussians["rot"], gaussians["scale"], gaussians["opacity"],
+        gaussians["color"], cams["intrinsic"].reshape(-1, 3, 3),
+        cams["extrinsic"].reshape(-1, 4, 4), W, H, max_per_tile=cfg.max_per_tile,
+        max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap)[2]
+    return int(counts.sum())
 
 
 def frames_close(got, want, name):

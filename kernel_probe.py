@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Phase probes of kernels K1 (tile splat) and K9a / K9b (Winograd) on one
-NVIDIA GPU (H100), for tuning; chip_smoke.py is the check of record.
+"""Phase probes of kernels S (segmented splat), K1 (tile splat) and K9a /
+K9b (Winograd) on one NVIDIA GPU (H100), for tuning; chip_smoke.py is the
+check of record.
 
-    python3 kernel_probe.py [--parent DIR]
+    python3 kernel_probe.py [--parent DIR] [--only s,k1,winograd]
 
-Builds, besides the port's libraries, probe builds of csrc/splat_tiles.cu
-(-DSPLAT_TILES_PROBE: a device mask skips its walk or staging) and
+Builds, besides the port's libraries, probe builds of csrc/splat_segments.cu
+(-DSPLAT_SEGMENTS_PROBE: a mask skips its walk, staging, tile-order
+pre-pass or far-pair cut; an order array maps blocks to tiles),
+csrc/splat_tiles.cu (-DSPLAT_TILES_PROBE: a mask skips its walk, staging or
+far-pair cut) and
 csrc/winograd.cu
 (-DWINOGRAD_PROBE: a device mask skips the region's copies, the GroupNorm
 affine, the input transform, the products or U's copies after the first
 two chunks; a timeline of one cluster's SM clock) into
 build/probe/, all nvcc processes started together, and with --parent DIR
 (an earlier tree's audio_motion_avatar_tpu_torch/csrc unpacked under DIR)
-that tree's K1. Then, through this tree's wrappers (chip_smoke.through):
+that tree's S, K1 and K9a / K9b. Then, through this tree's wrappers
+(chip_smoke.through; the parent's S by chip_smoke.parent_segments):
+  S at chip_smoke's serving shape (6 frames at 512^2, 30k gaussians, K =
+     512): the segment lengths; max|diff| against the plain version,
+     bit-equality with a second launch and the parent's output; CUDA-event
+     times in turns; the probe build in the pre-pass's tile order, in the
+     tiles' own order and in argsort's, with the walk skipped (staging and
+     stores), with the staging skipped too (with and without the pre-pass),
+     without the far-pair cut; the shares of kept, far and other dropped
+     pairs; and the longest tile alone (the other counts set to 0);
   K1 at chip_smoke's two shapes (1 + 8 views at 1024^2, one 1296x2304
      frame; K = 512): max|diff| against the plain version, bit-equality
      with a second launch and the parent's output; CUDA-event times in
-     turns, and the probe build with the walk skipped (scan, staging and
-     stores) and with the staging skipped too (scan and stores);
+     turns, and the probe build whole, with the walk skipped (scan, staging
+     and stores), with the staging skipped too (scan and stores), and
+     without the far-pair cut;
   K9b at (3, 512^2, 256) and (18, 256^2, 256) SAME, K9a at (18, 256^2,
      256) SAME and at the two VALID shapes of chip_smoke (4608 windows of
      20^2 and 18^2): with --parent, the parent's time in turns and
@@ -76,6 +90,120 @@ def load(path, name, extra=()):
     return lib
 
 
+def pair_shares(params, starts, counts, tx, tiles_per_frame):
+    """What the walk makes of S's (pixel, segment entry) pairs, followed
+    along each segment as the plain version does: the shares kept, kept with
+    T already under T_EPS (whose exp of log T no weight needs), and of those
+    in a warp whose 32 pixels are all under it; dropped at power < -5.6 with
+    opacity <= 1 (the far-pair cut, before the exp); dropped otherwise; and
+    the share of segment entries far from every pixel of their tile."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import splat as sp
+
+    n = starts.shape[0]
+    npix = sp.TILE * sp.TILE
+    px, py = sp.tile_pixels(n, tx, tiles_per_frame, params.device)
+    c = counts.long()
+    logT = torch.zeros(n, npix, device=params.device)
+    T = torch.ones(n, npix, device=params.device)
+    kept = under = warp_under = far = far_entries = 0
+    for j in range(int(c.max())):
+        walked = j < c
+        g = params[:, torch.where(walked, starts.long() + j, 0)]
+        _, _, power, _, _, alpha, keep = sp.slot_alpha(g, px, py)
+        k = keep & walked[:, None]
+        is_under = T < sp.T_EPS
+        kept += int(k.sum())
+        under += int((k & is_under).sum())
+        warp_all = is_under.view(n, npix // 32, 32).all(-1, keepdim=True).expand(-1, -1, 32)
+        warp_under += int((k & warp_all.reshape(n, npix)).sum())
+        is_far = (power < -5.6) & (g[5] <= 1.0)[:, None] & walked[:, None]
+        far += int(is_far.sum())
+        far_entries += int((is_far.all(-1) & walked).sum())
+        logT_after = logT + torch.log1p(-alpha)
+        logT = torch.where(k, logT_after, logT)
+        T = torch.where(k, torch.exp(logT_after), T)
+    pairs = int(c.sum()) * npix
+    return (f"{pairs} pairs; kept {kept / pairs:.4f} (of them with T under T_EPS "
+            f"{under / max(kept, 1):.4f}, in a warp all under it {warp_under / max(kept, 1):.4f}), "
+            f"dropped at power < -5.6 {far / pairs:.4f}, dropped otherwise "
+            f"{(pairs - kept - far) / pairs:.4f}; segment entries far from their whole tile "
+            f"{far_entries / int(c.sum()):.4f}")
+
+
+def probe_s(dev, libs):
+    import ctypes
+    import torch
+    import chip_smoke as cs
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+
+    args = cs.segment_inputs(dev)[0]
+    params, starts, counts = args[:3]
+    c = counts.long()
+    chunks = torch.bincount((c + 127) // 128, minlength=5).tolist()
+    q = torch.quantile(c[c > 0].double(),
+                       torch.tensor([0.5, 0.9, 0.99], device=dev, dtype=torch.double))
+    print(f"[probe] S segments: {c.numel()} tiles, {int((c > 0).sum())} non-empty, "
+          f"{int(c.sum())} entries; non-empty lengths median / 90 % / 99 % "
+          f"{' / '.join(f'{v:.0f}' for v in q.tolist())}, max {int(c.max())}; tiles of 0, 1, 2, "
+          f"3, 4 chunks of 128: {chunks}", flush=True)
+
+    def new():
+        return ss.composite_segments(*args)
+
+    runs = {"this tree": new}
+    if "parent_segments" in libs:
+        runs["parent"] = cs.parent_segments(sys.argv[sys.argv.index("--parent") + 1],
+                                            libs["parent_segments"], args)
+    out = {k: f() for k, f in runs.items()}
+    again = new()
+    plain = ss.composite_segments_plain(*args)
+    torch.cuda.synchronize()
+    ref = out["this tree"]
+    err = float((ref - plain).abs().max())
+    same = {k: bool(torch.equal(ref, v)) for k, v in out.items()}
+    print(f"[probe] S: max|diff| against the plain version {err:.3e}; bit-identical to a second "
+          f"launch {torch.equal(ref, again)}, to {same}", flush=True)
+    order = list(runs) + list(reversed(runs))
+    times = {k: [] for k in runs}
+    for k in order:
+        times[k].append(cs.time_ms(runs[k], 10))
+    print("[probe] S: " + ", ".join(
+        f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()), flush=True)
+
+    probe = libs["segments_probe"]
+    probe.splat_segments_probe_order.argtypes = [ctypes.c_void_p]
+    probe.splat_segments_probe_order.restype = ctypes.c_int
+    run = cs.through("splat_segments", probe, new)
+    longest = torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+    line = []
+    for mask, tile_order, what in ((0, None, "full (the pre-pass's order)"),
+                                   (8, None, "own order, no pre-pass"),
+                                   (0, longest, "argsort's order, longest first"),
+                                   (1, None, "walk skipped"),
+                                   (3, None, "walk and staging skipped"),
+                                   (11, None, "walk and staging skipped, no pre-pass"),
+                                   (16, None, "without the far-pair cut"),
+                                   (24, None, "without the cut, own order")):
+        probe.splat_segments_probe_set(mask)
+        probe.splat_segments_probe_order(None if tile_order is None else tile_order.data_ptr())
+        ms = cs.time_ms(run, 10)
+        exact = "" if mask & 3 else f" (bit-identical {torch.equal(run(), ref)})"
+        line.append(f"{what} {ms:.4f}{exact}")
+    probe.splat_segments_probe_set(0)
+    probe.splat_segments_probe_order(None)
+    print("[probe] S probe build: " + "; ".join(line) + " ms", flush=True)
+    print("[probe] S pairs: " + pair_shares(params, starts, counts, *args[3:]), flush=True)
+    alone = torch.zeros_like(counts)
+    top = int(longest[0])
+    alone[top] = counts[top]
+    ms = cs.time_ms(lambda: ss.composite_segments(params, starts, alone, *args[3:]), 10)
+    print(f"[probe] S: the longest tile ({int(counts[top])} entries) alone, the others empty: "
+          f"{ms:.4f} ms", flush=True)
+    del out, again, plain
+    torch.cuda.empty_cache()
+
+
 def probe_k1(dev, libs):
     import torch
     import chip_smoke as cs
@@ -106,11 +234,14 @@ def probe_k1(dev, libs):
         print("[probe] K1 " + name + ": " + ", ".join(
             f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()), flush=True)
         probe = libs["probe"]
-        for mask, what in ((1, "walk skipped (scan, staging, stores)"),
-                           (3, "walk and staging skipped (scan, stores)")):
+        for mask, what in ((0, "probe build, full"), (1, "walk skipped (scan, staging, stores)"),
+                           (3, "walk and staging skipped (scan, stores)"),
+                           (4, "without the far-pair cut")):
             probe.splat_tiles_probe_set(mask)
-            ms = cs.time_ms(cs.through("splat_tiles", probe, new), 5)
-            print(f"[probe] K1 {name}: {what}: {ms:.4f} ms", flush=True)
+            run = cs.through("splat_tiles", probe, new)
+            ms = cs.time_ms(run, 5)
+            exact = "" if mask & 3 else f" (bit-identical {torch.equal(run(), out['this tree'])})"
+            print(f"[probe] K1 {name}: {what}: {ms:.4f} ms{exact}", flush=True)
         probe.splat_tiles_probe_set(0)
         del packed, out, again, plain
         torch.cuda.empty_cache()
@@ -212,32 +343,50 @@ def main():
                          capture_output=True, text=True, timeout=60)
     print(f"[probe] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{smi.stdout.strip()}", flush=True)
+    only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
+            else ["s", "k1", "winograd"])
+    # probe: (library name, source, probe define, its C setters) of each kernel
+    probes = {"s": ("splat_segments", "segments_probe", "-DSPLAT_SEGMENTS_PROBE",
+                    ["splat_segments_probe_set"]),
+              "k1": ("splat_tiles", "probe", "-DSPLAT_TILES_PROBE", ["splat_tiles_probe_set"]),
+              "winograd": ("winograd", "winograd_probe", "-DWINOGRAD_PROBE",
+                           ["winograd_probe_set"])}
+    parents = {"s": "parent_segments", "k1": "parent", "winograd": "parent_winograd"}
     csrc = kernels.CSRC
-    fm = kernels.KERNELS["splat_tiles"][1]
-    variants = {"probe": (os.path.join(csrc, "splat_tiles.cu"), fm, ["-DSPLAT_TILES_PROBE"]),
-                "winograd_probe": (os.path.join(csrc, "winograd.cu"), (), ["-DWINOGRAD_PROBE"])}
-    if "--parent" in sys.argv:
-        parent = sys.argv[sys.argv.index("--parent") + 1]
-        psrc = os.path.join(parent, "audio_motion_avatar_tpu_torch", "csrc")
-        variants["parent"] = (os.path.join(psrc, "splat_tiles.cu"), fm, [])
-        variants["parent_winograd"] = (os.path.join(psrc, "winograd.cu"), (), [])
+    variants, names = {}, [probes[k][0] for k in only]
+    for k in only:
+        name, tag, define, _ = probes[k]
+        src = kernels.KERNELS[name][0]
+        variants[tag] = (os.path.join(csrc, src), kernels.KERNELS[name][1], [define])
+        if "--parent" in sys.argv:
+            parent = sys.argv[sys.argv.index("--parent") + 1]
+            psrc = os.path.join(parent, "audio_motion_avatar_tpu_torch", "csrc")
+            variants[parents[k]] = (os.path.join(psrc, src), kernels.KERNELS[name][1], [])
     t0 = time.perf_counter()
-    kernels.build(["splat_tiles", "winograd"], verbose=True)
-    for name in ("splat_tiles", "winograd"):
+    kernels.build(names, verbose=True)
+    for name in names:
         print(f"[probe] {name} ptxas: " + "; ".join(
             f"{k}: {v}" for k, v in kernels.ptxas_usage(kernels.BUILD_LOGS.get(name, "")).items()),
             flush=True)
     paths = build_variants(variants)
     print(f"[probe] built in {time.perf_counter() - t0:.1f} s", flush=True)
-    libs = {"probe": load(paths["probe"], "splat_tiles", ["splat_tiles_probe_set"]),
-            "winograd_probe": load(paths["winograd_probe"], "winograd", ["winograd_probe_set"])}
-    if "parent" in paths:
-        libs["parent"] = load(paths["parent"], "splat_tiles")
-        libs["parent_winograd"] = load(paths["parent_winograd"], "winograd")
-    print("[probe] K1 resources: " + cs.kernel_resources(
-        "splat_tiles", {"K1": "tile_composite_kernel"}, {"K1": 0}), flush=True)
-    probe_k1(dev, libs)
-    probe_winograd(dev, libs)
+    libs = {}
+    for k in only:
+        name, tag, _, setters = probes[k]
+        libs[tag] = load(paths[tag], name, setters)
+        if parents[k] in paths:
+            libs[parents[k]] = load(paths[parents[k]], name)
+    if "s" in only:
+        print("[probe] S resources: " + cs.kernel_resources(
+            "splat_segments", {"S": "seg_composite_kernel", "S order": "seg_order_kernel"},
+            {"S": 0, "S order": 0}), flush=True)
+        probe_s(dev, libs)
+    if "k1" in only:
+        print("[probe] K1 resources: " + cs.kernel_resources(
+            "splat_tiles", {"K1": "tile_composite_kernel"}, {"K1": 0}), flush=True)
+        probe_k1(dev, libs)
+    if "winograd" in only:
+        probe_winograd(dev, libs)
     return 0
 
 

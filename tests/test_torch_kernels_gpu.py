@@ -46,31 +46,47 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("large_cap,K", [(0, 512), (16, 24)])
-def test_splat_kernel_matches_plain(cuda, large_cap, K):
+@pytest.mark.parametrize("inputs", ["one-tier K512", "two-tier K24", "edges"])
+def test_splat_kernel_matches_plain(cuda, inputs):
     """2 frames at 128x96, 400 gaussians: empty, short and (K=24) clamped
-    segments, one- and two-tier binning."""
-    F, N, W, H = 2, 400, 128, 96
-    rng = np.random.RandomState(0)
+    segments, one- and two-tier binning; and the hand-made edges of
+    tests/splat_segment_cases.py: segments of exactly 128 entries, of 129,
+    300 and 512, a tile whose every pair is dropped (white), one whose pixels
+    fall under T 1e-4 before its segment ends, unaligned starts. Held against
+    the plain version at 1e-5, and a second launch bit for bit."""
+    if inputs == "edges":
+        from splat_segment_cases import edge_segments
+        params, starts, counts, tx, tpf = edge_segments(cuda)
+    else:
+        large_cap, K = (0, 512) if inputs == "one-tier K512" else (16, 24)
+        F, N, W, H = 2, 400, 128, 96
+        rng = np.random.RandomState(0)
 
-    def r(*shape, s=1.0):
-        return torch.as_tensor((rng.randn(*shape) * s).astype(np.float32), device=cuda)
+        def r(*shape, s=1.0):
+            return torch.as_tensor((rng.randn(*shape) * s).astype(np.float32), device=cuda)
 
-    Km = torch.tensor([[70.0, 0, W / 2], [0, 70.0, H / 2], [0, 0, 1]], device=cuda)
-    E = torch.eye(4, device=cuda).repeat(F, 1, 1)
-    E[:, 2, 3] = torch.tensor([2.0, 2.5], device=cuda)
-    proj = project_gaussians(r(F, N, 3, s=0.4), r(F, N, 4), activate_scales(r(F, N, 3, s=0.3) - 2),
-                             activate_opacity(r(F, N, s=2.0)), torch.rand(F, N, 3, device=cuda),
-                             make_camera(Km.expand(F, 3, 3), E, W, H))
-    params, starts, counts = ss.pack_sorted_params(proj, W, H, K, 4, large_cap=large_cap)
-    tx = W // 16
+        Km = torch.tensor([[70.0, 0, W / 2], [0, 70.0, H / 2], [0, 0, 1]], device=cuda)
+        E = torch.eye(4, device=cuda).repeat(F, 1, 1)
+        E[:, 2, 3] = torch.tensor([2.0, 2.5], device=cuda)
+        proj = project_gaussians(r(F, N, 3, s=0.4), r(F, N, 4),
+                                 activate_scales(r(F, N, 3, s=0.3) - 2),
+                                 activate_opacity(r(F, N, s=2.0)),
+                                 torch.rand(F, N, 3, device=cuda),
+                                 make_camera(Km.expand(F, 3, 3), E, W, H))
+        params, starts, counts = ss.pack_sorted_params(proj, W, H, K, 4, large_cap=large_cap)
+        tx, tpf = W // 16, (W // 16) * (H // 16)
+        assert bool((counts == 0).any()) and 0 < int(counts.max()) <= K
     before = ss.composite_segments.launches
-    got = ss.composite_segments(params, starts, counts, tx, tx * (H // 16))
-    want = ss.composite_segments_plain(params, starts, counts, tx, tx * (H // 16))
+    got = ss.composite_segments(params, starts, counts, tx, tpf)
+    again = ss.composite_segments(params, starts, counts, tx, tpf)
+    want = ss.composite_segments_plain(params, starts, counts, tx, tpf)
     torch.cuda.synchronize()
-    assert ss.composite_segments.launches == before + 1
+    assert ss.composite_segments.launches == before + 2
     assert float((got - want).abs().max()) <= 1e-5
-    assert bool((counts == 0).any()) and 0 < int(counts.max()) <= K
+    assert torch.equal(got, again)
+    if inputs == "edges":
+        assert bool((got[0] == 1.0).all()) and bool((got[5] == 1.0).all())
+        assert float(got[6].max()) < 1.0 and bool((got[1:5] < 0.999).any())
 
 
 @pytest.mark.parametrize("K,window", [(512, 4), (24, 8), (200, 4)])

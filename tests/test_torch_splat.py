@@ -23,6 +23,8 @@ from audio_motion_avatar_tpu_torch.ops import splat as tsplat
 from audio_motion_avatar_tpu_torch.ops import splat_segmented as tss
 from audio_motion_avatar_tpu_torch.ops.cameras import make_camera as tmake_camera
 
+from splat_segment_cases import edge_segments
+
 
 def gaussians(n, seed, frames=1):
     rng = np.random.RandomState(seed)
@@ -147,3 +149,59 @@ def test_composite_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tss.composite_segments(p, s, s, 1, 1)
     assert tss.composite_segments.launches == 0
+
+
+def segment_walk(params, starts, counts, tx, tiles_per_frame):
+    """Kernel S's walk (csrc/splat_walk.cuh) in plain torch, one segment
+    position per step: a far pair (power < -5.6, opacity <= 1) and a pair the
+    alpha rule drops are skipped (log T, T and the colour stay as they are),
+    T = exp(log T) is carried from kept slot to kept slot, and a tile stops
+    at the end of its segment."""
+    n = starts.shape[0]
+    px, py = tsplat.tile_pixels(n, tx, tiles_per_frame, params.device)
+    logT = torch.zeros(n, tss.P)
+    T = torch.ones(n, tss.P)
+    acc = torch.zeros(3, n, tss.P)
+    for j in range(int(counts.max())):
+        walked = j < counts.long()
+        g = params[:, torch.where(walked, starts.long() + j, 0)]
+        _, _, power, _, _, alpha, keep = tsplat.slot_alpha(g, px, py)
+        far = (power < -5.6) & (g[5] <= 1.0)[:, None]
+        kept = walked[:, None] & ~far & keep
+        logT_after = logT + torch.log1p(-alpha)
+        T_after = torch.exp(logT_after)
+        w = alpha * T
+        add = kept & ~(T_after < tsplat.T_EPS)
+        acc = torch.where(add[None], acc + w[None] * g[6:9][:, :, None], acc)
+        logT = torch.where(kept, logT_after, logT)
+        T = torch.where(kept, T_after, T)
+    return torch.clamp(acc + T[None], 0.0, 1.0).permute(1, 2, 0).contiguous()
+
+
+@pytest.mark.parametrize("inputs", ["projected", "edges"])
+def test_segment_walk_is_the_plain_blend_bit_for_bit(inputs):
+    """Kernel S's bit-identity rests on its cuts being identities: skipping
+    a far or dropped pair and carrying T change no bit of the plain
+    version's sequential blend. Two frames binned with K = 24 (clamped and empty
+    segments), and the hand-made edges (chunk lengths 128 and 129, a tile
+    whose every pair drops, one whose pixels fall under T 1e-4 early)."""
+    if inputs == "projected":
+        F, N, W, H, K = 2, 150, 96, 64, 24
+        xyz, rot, s, o, c, Kc, E = gaussians(N, 5, frames=F)
+        cam = tmake_camera(torch.as_tensor(Kc), torch.as_tensor(E), W, H)
+        proj = tsplat.project_gaussians(
+            torch.as_tensor(xyz), torch.as_tensor(rot),
+            tsplat.activate_scales(torch.as_tensor(s)),
+            tsplat.activate_opacity(torch.as_tensor(o)), torch.as_tensor(c), cam)
+        params, starts, counts = tss.pack_sorted_params(proj, W, H, K, 4, large_cap=32)
+        args = (params, starts, counts, W // 16, (W // 16) * (H // 16))
+        assert bool((counts == 0).any()) and bool((counts == K).any())
+    else:
+        args = edge_segments("cpu")
+    want = tss.composite_segments_plain(*args)
+    got = segment_walk(*args)
+    assert torch.equal(got, want)
+    assert bool((want < 0.999).any())
+    if inputs == "edges":
+        assert bool((want[0] == 1.0).all()) and bool((want[5] == 1.0).all())
+        assert float(want[6].max()) < 1.0
