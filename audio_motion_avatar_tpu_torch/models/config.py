@@ -16,8 +16,10 @@ five compute the same function, kernel A's, and the port routes them
 there; a train step refuses the four forward-only names. The others (scan
 unroll, the splat and quad-row implementation selectors, slab sampling,
 the sparse penultimate level) have no counterpart in the port and are left
-out, so none can be set and then ignored. Of the render-path knobs, the
-renderer raises on the values it does not implement. The stage-1 fields
+out, so none can be set and then ignored (configs/build.py drops from a
+YAML those whose every value computes the same function and refuses the
+others). Of the render-path knobs, the renderer raises on the values it
+does not implement. The stage-1 fields
 (sapiens_encoder, the triplane encoder's transformers) describe the model
 the weights come from and are read by the stage-1 slice.
 """
@@ -104,6 +106,10 @@ class AvatarConfig:
     audio_transformer_remat: bool = True
     # tanh-approximate GELU in the PTv3 refiner MLPs and the audio GEGLU
     gelu_approx: bool = False
+    # demo: consecutive chunks rolled out in one call, the token window slid
+    # inside it, one host transfer per group (the same math as one chunk a
+    # call); 1 = one chunk a call
+    demo_fuse_chunks: int = 1
 
     @classmethod
     def default(cls) -> "AvatarConfig":

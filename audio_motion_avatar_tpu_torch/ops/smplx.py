@@ -2,7 +2,8 @@
 
 `synthetic_model()` builds the same numpy arrays as the JAX package's
 stand-in from the same seed (tests check this), so every test and the chip
-smoke test run without the proprietary SMPL-X asset. `as_tensors()` moves a
+smoke test run without the proprietary SMPL-X asset; `load_model()` reads
+the released one when it is there. `as_tensors()` moves a
 model onto a device. The kinematic chain is unrolled over the static tree.
 `forward` runs with TF32 off (device.fp32_geometry): at TF32 or bf16 the
 55-joint chain loses ~1e-3 of vertex accuracy.
@@ -10,6 +11,8 @@ model onto a device. The kinematic chain is unrolled over the static tree.
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -116,6 +119,54 @@ def lbs(model: SmplxModel, betas: torch.Tensor, expression: torch.Tensor,
     T = torch.einsum("vj,bjxy->bvxy", model.lbs_weights, rel)
     return (torch.einsum("bvxy,bvy->bvx", T[..., :3, :3], v_posed)
             + T[..., :3, 3])
+
+
+def load_model(path: str, num_betas: int = 10, num_expr: int = 10,
+               dtype=np.float32) -> SmplxModel:
+    """Load the released SMPLX_NEUTRAL model (.npz or .pkl, or a directory
+    holding one) as numpy arrays, in the smplx package's field layout:
+    shapedirs[..., :300] are the shape components (the first `num_betas`
+    used) and [..., 300:300 + num_expr] the expression components."""
+    if os.path.isdir(path):
+        for cand in ("SMPLX_NEUTRAL.npz", "SMPLX_NEUTRAL.pkl"):
+            p = os.path.join(path, cand)
+            if os.path.exists(p):
+                path = p
+                break
+    if path.endswith(".npz"):
+        data = dict(np.load(path, allow_pickle=True))
+    else:
+        with open(path, "rb") as f:
+            raw = pickle.load(f, encoding="latin1")
+        data = {k: np.asarray(v) for k, v in raw.items() if not isinstance(v, str)}
+
+    shapedirs_all = np.asarray(data["shapedirs"], dtype)
+    if shapedirs_all.shape[-1] > 300:  # full release: 300 shape + 100 expression
+        shapedirs = shapedirs_all[..., :num_betas]
+        exprdirs = shapedirs_all[..., 300:300 + num_expr]
+    else:
+        shapedirs = shapedirs_all[..., :num_betas]
+        exprdirs = shapedirs_all[..., num_betas:num_betas + num_expr]
+
+    posedirs = np.asarray(data["posedirs"], dtype)
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # (P, V*3)
+
+    parents = np.asarray(data["kintree_table"])[0].astype(np.int32)
+    parents[0] = -1
+    parents = parents[:NUM_JOINTS]
+
+    return SmplxModel(
+        v_template=np.asarray(data["v_template"], dtype),
+        shapedirs=np.ascontiguousarray(shapedirs),
+        exprdirs=np.ascontiguousarray(exprdirs),
+        posedirs=np.ascontiguousarray(posedirs[: (NUM_JOINTS - 1) * 9]),
+        J_regressor=np.asarray(data["J_regressor"], dtype)[:NUM_JOINTS],
+        parents=parents,
+        lbs_weights=np.asarray(data["weights"], dtype)[:, :NUM_JOINTS],
+        left_hand_mean=np.asarray(data.get("hands_meanl", np.zeros(45)), dtype),
+        right_hand_mean=np.asarray(data.get("hands_meanr", np.zeros(45)), dtype),
+        faces=np.asarray(data["f"], np.int32),
+    )
 
 
 def _grid_faces(rows: int, cols: int) -> np.ndarray:

@@ -6,9 +6,10 @@ tokens, audio features, cameras) to (rendered frames, next triplane token
 window, next SMPL-X token window, decoded params). Built with stage1=True it
 also holds the stage-1 encoder stack, and `Rollout.tokens` turns reference
 frames into the initial token window (the demo's stage-1 pass, render off).
-`serve` is the host loop that answers requests in order, sliding the
-last-T_in token window from one chunk to the next, as the two-stream demo
-does.
+`Rollout.chunks` runs several chunks in one call (main2's fused demo
+groups). `serve` is the host loop that answers requests in order, sliding
+the last-T_in token window from one chunk to the next, as the two-stream
+demo does.
 
 Geometry (SMPL-X FK/LBS, projection, splatting) runs in fp32 with TF32 off;
 the transformer, refiner and upsampler stacks run in cfg.compute_dtype
@@ -33,6 +34,10 @@ from .ops.cameras import orbit_cameras
 from .weights import init_weights
 
 
+# the CLI override that sets the compute dtype from a YAML config (main2)
+BF16_OVERRIDE = "model.compute_dtype=bfloat16"
+
+
 class Rollout:
     """One serving chunk per call, on the model's device."""
 
@@ -50,6 +55,28 @@ class Rollout:
         rendered, out_tri, out_smpl, pred = self.model.rollout(
             self.statics, tri, smpl, audio, cams)
         return rendered, out_tri[:, -T_in:], out_smpl[:, -T_in:], pred
+
+    @torch.no_grad()
+    def chunks(self, tri: torch.Tensor, smpl: torch.Tensor, audio: torch.Tensor,
+               cams: dict, n: int = 1):
+        """n consecutive chunks in one call (the demo's fused group): audio
+        (B, n T_out, C_a) and cameras (B, n T_out, ...) taken T_out frames
+        a chunk, the token window slid after each -> (rendered (B, n T_out,
+        H, W, 3), the last tri window, smpl window, pred (B, n T_out, ...)).
+        Each chunk computes what one call of the rollout computes."""
+        T_out = audio.shape[1] // n
+        rendered, preds = [], []
+        for c in range(n):
+            sl = slice(c * T_out, (c + 1) * T_out)
+            out = self(tri, smpl, audio[:, sl].contiguous(),
+                       {k: v[:, sl].contiguous() for k, v in cams.items()})
+            tri, smpl = out[1], out[2]
+            rendered.append(out[0])
+            preds.append(out[3])
+        if n == 1:
+            return rendered[0], tri, smpl, preds[0]
+        return (torch.cat(rendered, 1), tri, smpl,
+                {k: torch.cat([p[k] for p in preds], 1) for k in preds[0]})
 
     @torch.no_grad()
     def tokens(self, images: torch.Tensor, smpl_params: Optional[dict],
@@ -77,12 +104,14 @@ def check_kernel_dtype(cfg: AvatarConfig, device: torch.device,
     if KERNEL_HEAD_DIM in widths:
         raise ValueError(
             f"head width {KERNEL_HEAD_DIM} runs through kernel A, which takes "
-            f"bf16 operands: build with dtype=torch.bfloat16 "
+            f"bf16 operands: build with dtype=torch.bfloat16, or from a YAML "
+            f"config pass the override {BF16_OVERRIDE} "
             f"(compute_dtype is {cfg.compute_dtype!r})")
     if cfg.upsampler_conv != "xla" and cfg.triplane_feature_dim % 128 == 0:
         raise ValueError(
             f"upsampler_conv={cfg.upsampler_conv!r} runs the Winograd kernels, which "
-            f"take bf16 operands: build with dtype=torch.bfloat16 "
+            f"take bf16 operands: build with dtype=torch.bfloat16, or from a "
+            f"YAML config pass the override {BF16_OVERRIDE} "
             f"(compute_dtype is {cfg.compute_dtype!r})")
 
 

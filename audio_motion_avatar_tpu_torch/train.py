@@ -10,8 +10,9 @@ returns its metrics as floats. On the card every D = 64 attention, the ViT
 excepted, runs kernel A forward and A-bwd backward, and every tile
 composite K1 forward and K2 backward; configurations that select a
 forward-only kernel (segmented splat, sparse upsampler / quad sampling) are
-refused here. The YAML / CLI entry, TensorBoard, checkpoints and the
-device mesh of the JAX package's trainer are not ported yet.
+refused here. The training CLI, TensorBoard and the device mesh of the
+JAX package's trainer are not ported yet (checkpoints:
+training/checkpoints.py).
 """
 
 from __future__ import annotations

@@ -103,6 +103,26 @@ class Optimizer:
         self.acc = ({k: torch.zeros_like(p) for k, p in params.items()}
                     if cfg.accumulate_steps > 1 else None)
 
+    def state_dict(self) -> dict:
+        """The optimizer's state (tensors as they are, counters as ints)."""
+        return {"mu": dict(self.mu), "nu": dict(self.nu), "acc": self.acc,
+                "count": self.count, "notfinite_count": self.notfinite_count,
+                "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore state_dict()'s output (its tensors copied onto the
+        parameters' devices); the parameter names must match."""
+        for name in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
+            mine, theirs = getattr(self, name), state[name]
+            if theirs is None or set(theirs) != set(mine):
+                raise KeyError(f"optimizer state {name!r} does not match the parameters")
+            for k, v in theirs.items():
+                mine[k] = v.to(device=mine[k].device, dtype=mine[k].dtype).clone()
+        self.count = int(state["count"])
+        self.notfinite_count = int(state["notfinite_count"])
+        self.mini_step = int(state["mini_step"])
+
     @torch.no_grad()
     def _inner(self, grads: Dict[str, torch.Tensor],
                params: Dict[str, torch.Tensor]) -> None:

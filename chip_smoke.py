@@ -116,6 +116,23 @@ Phases (any failure exits non-zero):
                accumulate 1: 1 warm-up + 2 micro-steps; the same checks (K9b
                16 a micro-step, remat recompute included), ms and peak memory
                beside phase 10's.
+ 12a. small demo — `main2.main --mode demo` on config_tiny.yaml (rendered-body
+               data, 2 chunks) from seeded weights saved by the port's
+               CheckpointManager, on the card and on the CPU: frames within
+               mean|diff| <= 1e-3, the card's S, Q and K1 (the dataset's
+               rendered targets) launches as the path implies; a seeded
+               Wav2Vec2-base window (12 x 768, fp32, TF32 off) on the card
+               against the CPU within 1e-3 of max|ref|, and its ms;
+ 12. demo — `main2.main --mode demo` at full width: config_stage_2.yaml with
+               the synthetic dataset at 512^2, 14 items (2 chunks, B = 2, 24
+               frames), bf16, `--checkpoint` of tamed seeded weights, `--audio`
+               a 16 kHz tone, a seeded Wav2Vec2-base checkout (all written
+               under build/demo/); checks 24 frames written and not blank, 24
+               overlays drawn, finite losses, S / Q / A launches as the path
+               implies (the stage-1 token pass included); prints the seconds of
+               the build, data, stage-1 tokens, audio features, each chunk's
+               rollout, losses, overlays and writing, the demo's and the
+               rollouts' fps, peak memory and whether the mp4s were written.
 Each phase prints its seconds. Then one {"kernels": [...]} line (nine
 kernels: splash is kernel A under the JAX package's splash name), the
 card's name and power limit, and as the last line {"ok": true, "device":
@@ -2073,6 +2090,231 @@ def run_train(dev, stage, conv="xla"):
     return launches, mean_ms, peak
 
 
+DEMO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "demo")
+PORT_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "audio_motion_avatar_tpu_torch", "configs")
+
+
+def demo_launches(cfg, n_chunks, B=2):
+    """Kernel launches of main2's demo: the stage-1 token pass over B x T_in
+    reference frames with the render off (kernel A in the ViT, the SMPL-X
+    predictor and the fusion where their heads are 64 wide), then n_chunks
+    rollouts of B x T_out frames, as phase 4 counts a request."""
+    def wide(head_dim):
+        return head_dim == 64
+
+    stage1 = ((cfg.vit_depth if wide(cfg.image_feature_dim // cfg.vit_heads) else 0)
+              + (2 * cfg.smplx_transformer_layers if wide(cfg.smplx_transformer_head_dim) else 0)
+              + (2 * cfg.cross_transformer_layers if wide(cfg.cross_transformer_head_dim) else 0))
+    chunks = B * cfg.triplane_output_frames // cfg.frames_per_chunk
+    dec0 = cfg.ptv3_dec_depths[0] * chunks if not cfg.no_point_refiner and \
+        wide(cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0]) else 0
+    audio = cfg.audio_transformer_layers * cfg.triplane_output_frames \
+        if wide(cfg.audio_transformer_head_dim) else 0
+    return {"attention": stage1 + n_chunks * (audio + dec0),
+            "quad_rows": n_chunks * chunks, "composite_segments": n_chunks * chunks}
+
+
+def demo_checkpoint(config, overrides, directory, visible=(1.0, 2.0), std=0.05, vit_depth=None):
+    """Seeded weights made visible (perturbed heads, tamed token update,
+    larger and more opaque gaussians) as the demo's checkpoint: the model
+    main2 builds from this config, built on the CPU, saved by the port's
+    CheckpointManager. vit_depth: build a shallower ViT (the frozen ViT is
+    not in a checkpoint; the trainable tensors are the same)."""
+    import dataclasses
+    import shutil
+
+    from audio_motion_avatar_tpu_torch import main2
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import (apply_serving_profile,
+                                                             build_avatar_config)
+    from audio_motion_avatar_tpu_torch.training.checkpoints import CheckpointManager
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    cfg = ConfigLoader.load_config(config, overrides)
+    ac = apply_serving_profile(build_avatar_config(cfg), cfg)
+    built = ac if vit_depth is None else dataclasses.replace(ac, vit_depth=vit_depth)
+    roll = main2.build_stage2(cfg, built, "cpu")
+    perturb_heads(roll.model, seed=1, std=std)
+    tame_seeded_weights(roll.model)
+    visible_heads(roll.model, *visible)
+    shutil.rmtree(directory, ignore_errors=True)
+    CheckpointManager(directory).save(0, main2.init_state2(roll.model, cfg))
+    return ac
+
+
+def wav2vec2_checkout(directory, seed=0):
+    """A seeded Wav2Vec2-base checkout (config.json, pytorch_model.bin,
+    preprocessor_config.json) the demo reads as a local wav2vec2-base-960h
+    would be read; returns the model (CPU)."""
+    import torch
+    from audio_motion_avatar_tpu_torch.models.wav2vec2 import (Wav2Vec2ArchConfig,
+                                                               Wav2Vec2Base)
+    from audio_motion_avatar_tpu_torch.weights import init_weights
+    arch = Wav2Vec2ArchConfig()
+    model = Wav2Vec2Base(arch)
+    init_weights(model, seed)
+    os.makedirs(directory, exist_ok=True)
+    torch.save(model.state_dict(), os.path.join(directory, "pytorch_model.bin"))
+    conf = {k: list(v) if isinstance(v, tuple) else v for k, v in vars(arch).items()}
+    conf.update(do_stable_layer_norm=False, feat_extract_norm="group")
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(conf, f)
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"do_normalize": True}, f)
+    return model.eval()
+
+
+def demo_frames(out_dir):
+    """The demo's written frames, decoded: (N, H, W, 3) float in [0, 1]."""
+    import numpy as np
+    import torch
+    from audio_motion_avatar_tpu_torch.utils.video import read_png
+    d = os.path.join(out_dir, "demo_outputs", "frames")
+    frames = [read_png(os.path.join(d, n)) for n in sorted(os.listdir(d))]
+    return torch.as_tensor(np.stack(frames).astype(np.float32) / 255.0)
+
+
+def run_main2(argv):
+    """main2.main(argv) with S, Q, A and K1 counted from 0 around it: (the
+    demo's summary, its launches, its wall seconds)."""
+    import torch
+    from audio_motion_avatar_tpu_torch import main2
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+    counters = (at.attention, tp.quad_rows, ss.composite_segments, st.composite_tiles)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    summary = main2.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return summary, {fn.__name__: fn.launches for fn in counters}, wall
+
+
+def check_small_demo(dev):
+    """12a: the tiny demo (config_tiny.yaml with its rendered-body data, 2
+    chunks, seeded visible weights through the port's CheckpointManager) on
+    the card and on the CPU: frames within mean|diff| <= 1e-3, the card's S,
+    Q and K1 launches as the path implies (K1 renders the dataset's target
+    videos); then a seeded Wav2Vec2-base window on the card against the CPU
+    (fp32, TF32 off): max|diff| <= 1e-3 max|ref|, and its time."""
+    import numpy as np
+    import torch
+    from audio_motion_avatar_tpu_torch.device import fp32_geometry
+    from audio_motion_avatar_tpu_torch.models.wav2vec2 import zero_mean_unit_var
+
+    config = os.path.join(PORT_CONFIGS, "config_tiny.yaml")
+    over = ["dataset.render_gt=true", "dataset.length=14"]
+    ckpt = os.path.join(DEMO_DIR, "tiny_ckpt")
+    ac = demo_checkpoint(config, over, ckpt)
+    runs = {}
+    for d in (dev, "cpu"):
+        out = os.path.join(DEMO_DIR, f"tiny_{torch.device(d).type}")
+        runs[d] = run_main2(["--device", str(d), "--config", config, "--mode", "demo",
+                             "--checkpoint", ckpt, f"training.output_dir={out}", *over])
+        runs[d] = runs[d] + (demo_frames(out),)
+    (summary, launches, wall, got), (_, _, cpu_wall, want) = runs[dev], runs["cpu"]
+    n = summary["n_chunks"]
+    expected = demo_launches(ac, n)
+    # K1 renders each dataset item's reference and target videos: 2 items
+    # for the token pass and 2 a chunk
+    expected["composite_tiles"] = 2 * 2 * (n + 1)
+    mad = (got - want).abs().reshape(got.shape[0], -1).mean(1)
+    print(f"[small demo] tiny demo card {wall:.1f} s / CPU {cpu_wall:.1f} s, {got.shape[0]} "
+          f"frames: mean|diff| max {float(mad.max()):.3e} (tol 1e-3); launches {launches} "
+          f"expected {expected}", flush=True)
+    if got.shape != want.shape or not (mad <= 1e-3).all():
+        raise AssertionError("the tiny demo's frames on the card disagree with the CPU's")
+    if launches != expected:
+        raise AssertionError(f"tiny demo launches {launches} != {expected}")
+    frames_ok(got[None], "small demo")
+
+    model = wav2vec2_checkout(os.path.join(DEMO_DIR, "wav2vec2_small"), seed=3)
+    wav = zero_mean_unit_var(np.random.RandomState(0).randn(int(round(8 / 24 * 16000))) * 0.1)
+    x = torch.as_tensor(wav, dtype=torch.float32)[None]
+    with torch.no_grad():
+        ref = model(x)
+        model.to(dev)
+        with fp32_geometry():
+            got = model(x.to(dev)).cpu()
+            ms = time_ms(lambda: model(x.to(dev)), 10)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[small demo] Wav2Vec2-base (12 x 768, seeded, fp32) one 8-frame window "
+          f"{tuple(x.shape)} -> {tuple(ref.shape)}: card {ms:.2f} ms; max|diff| / max|ref| "
+          f"{err:.3e} (tol 1e-3)", flush=True)
+    if not err <= 1e-3:
+        raise AssertionError("Wav2Vec2 on the card disagrees with the CPU")
+
+
+def full_demo(dev):
+    """12: main2 --mode demo at full width (config_stage_2.yaml, 512^2 synthetic
+    data, B = 2, 2 chunks = 24 frames, bf16), from a checkpoint of tamed
+    seeded weights, a 16 kHz tone wav and a seeded Wav2Vec2-base checkout,
+    all written under build/demo/. Checks the frames, the overlays, the
+    losses and the launches; prints the time split, fps and peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+    from audio_motion_avatar_tpu_torch.data.speech import write_wav
+
+    config = os.path.join(PORT_CONFIGS, "config_stage_2.yaml")
+    w2v = os.path.join(DEMO_DIR, "wav2vec2_base")
+    over = ["dataset.type=SyntheticDataset", "dataset.image_size=[512,512]",
+            "dataset.length=14", f"dataset.wav2vec2_model_path={w2v}",
+            "model.compute_dtype=bfloat16", f"training.output_dir={DEMO_DIR}"]
+    t0 = time.perf_counter()
+    ckpt = os.path.join(DEMO_DIR, "ckpt")
+    ac = demo_checkpoint(config, over, ckpt, visible=(-1.0, 0.0), std=1e-2, vit_depth=1)
+    wav2vec2_checkout(w2v)
+    tone = os.path.join(DEMO_DIR, "tone.wav")
+    t = np.arange(16000) / 16000.0
+    write_wav(tone, 0.3 * np.sin(2 * np.pi * 220.0 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)))
+    print(f"[demo] checkpoint, wav2vec2 checkout and tone written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    summary, launches, wall = run_main2(
+        ["--config", config, "--mode", "demo", "--checkpoint", ckpt, "--audio", tone, *over])
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = summary["n_chunks"]
+    expected = demo_launches(ac, n)
+    expected["composite_tiles"] = 0
+    frames = demo_frames(DEMO_DIR)
+    losses = [v for _, _, l1, sl in summary["losses"] for v in (l1, sl)]
+    sec, chunks = summary["seconds"], summary["chunk_seconds"]
+    per_chunk = 2 * ac.triplane_output_frames
+    print(f"[demo] {summary['frames']} frames {tuple(frames.shape[1:])}, {summary['overlays']} "
+          f"overlays drawn, {n} chunks; launches {launches} expected {expected}; losses "
+          f"finite {all(math.isfinite(v) for v in losses)}; mp4 "
+          f"{ {k: 'written' if v else 'skipped (no cv2)' for k, v in summary['mp4'].items()} }",
+          flush=True)
+    print(f"[demo] seconds: build {sec['build']:.2f}, data {sec['data']:.2f}, stage-1 tokens "
+          f"{sec['stage-1 tokens']:.3f}, audio features {sec['audio features']:.3f}, rollouts "
+          f"{', '.join(f'{c:.3f}' for c in chunks)} (first, then each), losses "
+          f"{sec['losses']:.3f}, overlays {sec['overlays']:.2f} "
+          f"({sec['overlays'] / summary['overlays']:.3f} a frame), writing {sec['writing']:.2f}; "
+          f"main2.main wall {wall:.2f}", flush=True)
+    print(f"[demo] fps: whole demo {summary['frames'] / wall:.3f}, after the build "
+          f"{summary['frames'] / (wall - sec['build']):.3f}, rollouts "
+          f"{summary['frames'] / sum(chunks):.2f} (without the first "
+          f"{per_chunk * (len(chunks) - 1) / max(sum(chunks[1:]), 1e-9):.2f}); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if summary["frames"] != summary["overlays"] or summary["frames"] != 2 * n * \
+            ac.triplane_output_frames or frames.shape[0] != summary["frames"]:
+        raise AssertionError("the demo wrote the wrong number of frames or overlays")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite demo losses {summary['losses']}")
+    if launches != expected:
+        raise AssertionError(f"demo launches {launches} != {expected}")
+    frames_ok(frames[None], "demo")
+    return launches
+
+
 def phase(name, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2156,6 +2398,8 @@ def main():
           f"{peak_gn / 2**30:.2f} GiB (16.70 GiB before K9b's backward kept its temporaries "
           f"small, PERF.md); phase 10 (direct convs): {ms1:.1f} ms, {peak1 / 2**30:.2f} GiB",
           flush=True)
+    phase("12a small demo", check_small_demo, dev)
+    phase("12 demo", full_demo, dev)
 
     # each kernel's launches on its path: S and Q in the serving rollout
     # (phase 4), K1 and A in the reconstruction (phase 7), K2 and A-bwd in

@@ -10,6 +10,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from audio_motion_avatar_tpu.parallel.mesh import unbox
@@ -95,3 +96,39 @@ def load_flax(module: torch.nn.Module, params: dict) -> torch.nn.Module:
 def t(a) -> torch.Tensor:
     """numpy / JAX array -> CPU float tensor (a copy)."""
     return torch.tensor(np.asarray(a))
+
+
+def flax_from_state_dict(template: dict, state_dict: dict, prefix: str = "") -> dict:
+    """The inverse of weights.params_from_flax on one subtree: a flax-layout
+    tree shaped as `template` (nested dicts of arrays, the module at
+    `prefix` in the port) holding the values of the port's `state_dict`.
+    Every rule there is a relayout, so each leaf's layout is inverted by
+    converting the array of its flat indices."""
+    from audio_motion_avatar_tpu_torch.weights import _entry
+
+    def leaf(path, a):
+        shape = np.shape(a)
+        key, idx = _entry(prefix, path, np.arange(int(np.prod(shape))).reshape(shape))
+        out = np.empty(int(np.prod(shape)), np.float32)
+        out[idx.numpy().astype(np.int64).ravel()] = \
+            state_dict[key].detach().float().cpu().numpy().ravel()
+        return out.reshape(shape)
+
+    def walk(tree, path=()):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict) else leaf(path + (k,), v)
+                for k, v in tree.items()}
+
+    return walk(template)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for the module's tests, restored after:
+    the tier-1 run keeps every core busy with its workers, where extra
+    threads only spin (the demo test alone on an 8-core CPU: 73 s of CPU
+    time with one thread, 126 s with eight, for nearly the same wall time).
+    Import it into a test module to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
