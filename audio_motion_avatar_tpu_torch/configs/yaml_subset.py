@@ -13,6 +13,14 @@ exponent needs its sign: `1e-4` stays the string '1e-4'; `.inf`, `.nan`).
 Anything else (anchors, tags, block scalars, multi-line plain scalars,
 timestamps, several documents) raises ValueError instead of being read
 differently from PyYAML.
+
+`dump` writes a tree of dicts, lists and scalars as PyYAML's
+`safe_dump` does (block style, keys sorted, sequences in a mapping not
+indented, a string plain only where it reads back as that string, else
+quoted; floats as `repr` with `.0` before a bare exponent), so that
+`yaml.safe_load` and `loads` read it back equal. Plain scalars are not
+folded at 80 columns as PyYAML folds long ones: the text differs there,
+the value does not.
 """
 
 from __future__ import annotations
@@ -405,3 +413,137 @@ def loads(text: str) -> Any:
 def load(path: str) -> Any:
     with open(path) as f:
         return loads(f.read())
+
+
+# ---------------------------------------------------------------------------
+# writing
+# ---------------------------------------------------------------------------
+
+_BLANKS = "\0 \t\r\n\x85\u2028\u2029"
+_BREAKS = "\n\x85\u2028\u2029"
+_DQ_ESCAPES = {"\0": "0", "\a": "a", "\b": "b", "\t": "t", "\n": "n", "\v": "v",
+               "\f": "f", "\r": "r", "\x1b": "e", '"': '"', "\\": "\\",
+               "\x85": "N", "\xa0": "_", "\u2028": "L", "\u2029": "P"}
+
+
+def _plain_allowed(s: str) -> bool:
+    """PyYAML's analysis of a scalar (Emitter.analyze_scalar, ASCII only):
+    whether it may be written plain in block context."""
+    if not s or s.startswith(("---", "...")):
+        return False
+    if s[0] in " \n" or s[-1] in " \n" or any(c in _BREAKS for c in s):
+        return False
+    if any(not (" " <= c <= "~") for c in s):
+        return False
+    follows = len(s) == 1 or s[1] in _BLANKS
+    if s[0] in "#,[]{}&*!|>'\"%@`" or (s[0] in "?:-" and follows):
+        return False
+    for i in range(1, len(s)):
+        follows = i + 1 >= len(s) or s[i + 1] in _BLANKS
+        if (s[i] == ":" and follows) or (s[i] == "#" and s[i - 1] in _BLANKS):
+            return False
+    return True
+
+
+def _reads_as_itself(s: str) -> bool:
+    try:
+        return resolve_plain(s) == s and isinstance(resolve_plain(s), str)
+    except ValueError:      # a timestamp or merge key: not a plain string
+        return False
+
+
+def _write_string(s: str) -> str:
+    if _reads_as_itself(s) and _plain_allowed(s):
+        return s
+    if all(" " <= c <= "~" for c in s):
+        return "'" + s.replace("'", "''") + "'"
+    out = []
+    for c in s:
+        if c in _DQ_ESCAPES:
+            out.append("\\" + _DQ_ESCAPES[c])
+        elif " " <= c <= "~":
+            out.append(c)
+        elif c <= "\xff":
+            out.append(f"\\x{ord(c):02X}")
+        elif c <= "\uffff":
+            out.append(f"\\u{ord(c):04X}")
+        else:
+            out.append(f"\\U{ord(c):08X}")
+    return '"' + "".join(out) + '"'
+
+
+def _write_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(v, str):
+        return _write_string(v)
+    raise TypeError(f"yaml_subset.dump: cannot write a {type(v).__name__}")
+
+
+def _write_block(node: Any, indent: int, lines: List[str], lead: str) -> None:
+    """Write `node` whose first line starts with `lead` (a key with its
+    colon, or the dashes of sequence items) at column `indent`."""
+    pad = " " * indent
+    if isinstance(node, dict) and node:
+        first = True
+        for k in sorted(node):
+            head = (lead if first else pad) + _write_scalar(k) + ":"
+            first = False
+            _write_value(node[k], indent, lines, head)
+    elif isinstance(node, list) and node:
+        first = True
+        for item in node:
+            head = (lead if first else pad) + "- "
+            first = False
+            if isinstance(item, (dict, list)) and item:
+                _write_block(item, indent + 2, lines, head)
+            else:
+                lines.append(head + _write_leaf(item))
+    else:
+        lines.append(lead + _write_leaf(node))
+
+
+def _write_leaf(node: Any) -> str:
+    if isinstance(node, dict):
+        return "{}"
+    if isinstance(node, list):
+        return "[]"
+    return _write_scalar(node)
+
+
+def _write_value(v: Any, indent: int, lines: List[str], head: str) -> None:
+    """A mapping entry's value: nested blocks on the next lines (mappings
+    indented by 2, sequences at the key's column), else on the key's line."""
+    if isinstance(v, dict) and v:
+        lines.append(head)
+        _write_block(v, indent + 2, lines, " " * (indent + 2))
+    elif isinstance(v, list) and v:
+        lines.append(head)
+        _write_block(v, indent, lines, " " * indent)
+    else:
+        lines.append(head + " " + _write_leaf(v))
+
+
+def dump(tree: Any) -> str:
+    """`tree` (dicts with string keys, lists, str / int / float / bool /
+    None) as YAML text, as `yaml.safe_dump(tree)` writes it."""
+    lines: List[str] = []
+    if isinstance(tree, (dict, list)) and tree:
+        _write_block(tree, 0, lines, "")
+        return "\n".join(lines) + "\n"
+    if isinstance(tree, (dict, list)):
+        return _write_leaf(tree) + "\n"
+    return _write_leaf(tree) + "\n...\n"

@@ -1,25 +1,29 @@
 """Dataset factory (the JAX package's data/factory.py): the train split
 uses training.batch_size, the evaluation splits batch 1.
 
-Only `SyntheticDataset` is ported. The real datasets (THuman, IDOL, the TED
-speech clips) and the prefetch ring of `num_workers > 0` raise, naming the
-ROADMAP item that ports them.
+`SyntheticDataset` batches itself; `ThumanDataset` and
+`GaussianAudioDataset` yield B = 1 items, which the loader groups by
+training.batch_size (containers.CollatedBatches, the trailing partial
+group dropped). `IDOLDataset` and the prefetch ring of `num_workers > 0`
+raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+from .containers import CollatedBatches
 from .synthetic import SyntheticDataset
 
-# ROADMAP.md section 1 item 6: the data layer beyond the synthetic set
+# ROADMAP.md section 1 item 6: the data layer beyond these readers
 _DATA_ITEM = "ROADMAP.md section 1 item 6 (data)"
-_NOT_PORTED = ("ThumanDataset", "IDOLDataset", "GaussianAudioDataset")
+_NOT_PORTED = ("IDOLDataset",)
 
 
 class DatasetFactory:
     @staticmethod
     def create_dataset(cfg, split: str = "train", device="cpu"):
         """device: where a SyntheticDataset with render_gt renders its
-        targets (the items are numpy either way)."""
+        targets and where GaussianAudioDataset computes its audio features
+        (the items are numpy either way)."""
         dtype = cfg.dataset.get("type", "SyntheticDataset")
         if dtype == "SyntheticDataset":
             ds_cfg = cfg.dataset
@@ -37,20 +41,28 @@ class DatasetFactory:
                 render_gt=bool(ds_cfg.get("render_gt", False)),
                 device=device,
             )
+        if dtype == "ThumanDataset":
+            from .thuman import ThumanDataset
+            return ThumanDataset(cfg, split)
+        if dtype == "GaussianAudioDataset":
+            from .speech import GaussianAudioDataset
+            return GaussianAudioDataset(cfg, split, device=device)
         if dtype in _NOT_PORTED:
             raise NotImplementedError(
                 f"dataset type {dtype!r} is not ported yet ({_DATA_ITEM}); "
-                "use dataset.type=SyntheticDataset")
+                "use ThumanDataset, GaussianAudioDataset or SyntheticDataset")
         raise ValueError(f"Unknown dataset type: {dtype}")
 
     @staticmethod
     def create_dataloader(cfg, split: str = "train", device="cpu"):
-        """The dataset as an iterable of (ref, target, id) batches (the
-        synthetic set batches internally; the real datasets' B = 1 items
-        will go through containers.CollatedBatches).
+        """The dataset as an iterable of (ref, target, id) batches: a reader
+        of B = 1 items grouped by training.batch_size on the train split.
         training.dataloader.num_workers > 0 (the JAX package's prefetch
         ring) raises."""
         ds = DatasetFactory.create_dataset(cfg, split, device)
+        bs = int(cfg.training.batch_size) if split == "train" else 1
+        if bs > 1 and not isinstance(ds, SyntheticDataset):
+            ds = CollatedBatches(ds, bs)
         workers = int(cfg.training.get("dataloader", {}).get("num_workers", 0)) \
             if split == "train" else 0
         if workers > 0:

@@ -1,10 +1,20 @@
-"""Stage-1 CLI pieces shared with main2 (the JAX package's main.py).
+"""Stage-1 CLI: train / test / predict the reconstruction model (the JAX
+package's main.py).
 
-`parse_args` and `setup_output_dirs` are the CLI's; `build_body` and
-`build_everything` build the body model, the renderer statics and the
-stage-1 model from a config tree (main2 builds the stage-2 model from the
-same body). `main` (train / test / predict) comes with the trainer:
-ROADMAP.md section 1 item 3.
+    python -m audio_motion_avatar_tpu_torch.main --config <yaml> \
+        --mode train|test|predict [--checkpoint DIR] [--resume] \
+        [--device cuda|cpu] [overrides a.b=c ...]
+
+train runs training/trainer.Trainer.fit over the dataset's train and val
+splits (the train, eval and render functions of training/stage1.py); test
+and predict run Trainer.validate over the val split (the train split when
+it is empty) and write the comparison PNGs under test_images/. The merged
+config is written to <training.output_dir>/config.yaml. It runs on the
+card unless --device cpu is given (the kernels' plain versions); without a
+card, cuda raises. --checkpoint DIR restores a
+training/checkpoints.CheckpointManager directory; a reference .ckpt file
+(ROADMAP.md section 1 item 4) and multi-host or multi-device runs (item 7)
+are refused. `build_body` and `build_everything` are shared with main2.
 """
 
 from __future__ import annotations
@@ -17,7 +27,9 @@ from .device import resolve_device
 from .models.config import AvatarConfig
 from .ops import smplx as smplx_ops
 
-TRAINER_ITEM = "ROADMAP.md section 1 item 3 (the trainer around the step)"
+from .training.trainer import PARALLEL_ITEM
+
+IMPORT_ITEM = "ROADMAP.md section 1 item 4 (training/torch_import.py)"
 
 
 def parse_args(argv=None):
@@ -36,12 +48,34 @@ def parse_args(argv=None):
 
 
 def setup_output_dirs(cfg):
-    """The run's output directories (the JAX CLI also dumps the merged
-    config as YAML there; the port has no YAML writer)."""
+    """The run's output directories, and the merged config written there as
+    config.yaml."""
+    from .configs import yaml_subset
     out = cfg.training.output_dir
     for sub in ("checkpoints", "train_images", "test_images", "target_images"):
         os.makedirs(os.path.join(out, sub), exist_ok=True)
+    with open(os.path.join(out, "config.yaml"), "w") as f:
+        f.write(yaml_subset.dump(cfg.to_dict()))
     return out
+
+
+def refuse_multihost(cfg) -> None:
+    """The JAX CLIs initialize a multi-process runtime when the config or
+    the environment asks for one; the port has none yet."""
+    want = os.environ.get("AMA_MULTIHOST", "") not in ("", "0", "false")
+    want = want or bool(os.environ.get("JAX_COORDINATOR_ADDRESS"))
+    training = cfg.get("training") or {}
+    if want or bool(training.get("multihost", False)):
+        raise NotImplementedError(
+            f"a multi-host run (training.multihost, AMA_MULTIHOST or "
+            f"JAX_COORDINATOR_ADDRESS) is not ported yet: {PARALLEL_ITEM}")
+
+
+def refuse_checkpoint_file(path) -> None:
+    if path and not os.path.isdir(path):
+        raise NotImplementedError(
+            f"--checkpoint {path!r} is a file: importing a reference .ckpt is not "
+            f"ported yet ({IMPORT_ITEM}); a CheckpointManager directory restores")
 
 
 def build_body(cfg, ac: AvatarConfig) -> smplx_ops.SmplxModel:
@@ -76,11 +110,59 @@ def build_everything(cfg, device=None):
     return model.to(device).eval(), statics, ac
 
 
+def init_state(model, cfg):
+    """The train state around the model: the optimizer of the YAML's
+    training section over every parameter but the frozen ViT."""
+    from .configs.build import build_optim_config
+    from .training.train_state import TrainState
+    return TrainState(model, build_optim_config(cfg))
+
+
 def main(argv=None):
-    parse_args(argv)
-    raise NotImplementedError(
-        f"main.py (train / test / predict) runs through the trainer, which is not "
-        f"ported yet: {TRAINER_ITEM}")
+    """Run the CLI; returns the validation metrics of test / predict (None
+    after train)."""
+    import numpy as np
+
+    from .configs import ConfigLoader
+    from .configs.build import default_affine_norm_for_import
+    from .data.factory import DatasetFactory
+    from .serve import check_kernel_dtype
+    from .training import stage1
+    from .training.trainer import Trainer, refuse_parallel
+
+    args = parse_args(argv)
+    cfg = ConfigLoader.load_config(args.config, args.overrides)
+    refuse_multihost(cfg)
+    refuse_checkpoint_file(args.checkpoint)
+    cfg = default_affine_norm_for_import(cfg, args.checkpoint)
+    refuse_parallel(cfg)
+    device = resolve_device(args.device)
+
+    np.random.seed(int(cfg.get("seed", 42)))
+    setup_output_dirs(cfg)
+
+    check_kernel_dtype(build_avatar_config(cfg), device, stage1=True)
+    model, statics, ac = build_everything(cfg, device)
+    state = init_state(model, cfg)
+    train_data = DatasetFactory.create_dataloader(cfg, split="train", device=device)
+    val_data = DatasetFactory.create_dataloader(cfg, split="val", device=device)
+
+    trainer = Trainer(cfg, stage1.make_train_step(model, statics, ac),
+                      stage1.make_eval_step(model, statics, ac),
+                      render_fn=stage1.make_render_fn(model, statics), device=device)
+    if args.checkpoint:
+        from .training.checkpoints import CheckpointManager
+        state, ok = CheckpointManager(args.checkpoint).restore(state)
+        print(f"[main] checkpoint restore: {'ok' if ok else 'none found'}")
+
+    metrics = None
+    if args.mode == "train":
+        trainer.fit(state, train_data, val_data, resume=args.resume)
+    else:
+        metrics = trainer.validate(state, val_data or train_data, save_images=True)
+        print("[main] eval:", {k: round(v, 5) for k, v in metrics.items()})
+    print("[main] done.")
+    return metrics
 
 
 if __name__ == "__main__":

@@ -1,8 +1,20 @@
-"""Stage-2 CLI: the audio-driven avatar's demo (the JAX package's main2.py).
+"""Stage-2 CLI: train, test and demo the audio-driven avatar (the JAX
+package's main2.py).
 
-    python -m audio_motion_avatar_tpu_torch.main2 --config <yaml> --mode demo \
-        [--checkpoint DIR] [--audio x.wav] [--output x.mp4] [--prewarm] \
-        [--device cuda|cpu] [overrides a.b=c ...]
+    python -m audio_motion_avatar_tpu_torch.main2 --config <yaml> \
+        --mode train|test|demo [--checkpoint DIR] [--resume] [--audio x.wav] \
+        [--output x.mp4] [--prewarm] [--device cuda|cpu] [overrides a.b=c ...]
+
+Train: the dataset's train split through training/stage2.Stage2TrainLoop
+(the prediction cache at training.cache_replacement_prob), the metrics and
+the per-cache-depth l1 channels logged every log_every_n_steps to
+TensorBoard event files under tb/, audio_rendered_images/
+audio_comparison_<step>_iter<depth>.png and ref_comparison_<step>.png
+every 200 steps (every step under fast_dev_run), a checkpoint at the end
+of each epoch (save_top_k kept; --resume restores the latest). Test: the
+val split through make_predict_step, the mean L1 printed and
+predict_results/audio_comparison_<n>.png written for the first 4 batches.
+Neither applies the serving profile.
 
 The demo: one stage-1 pass for the initial token window of two streams
 (the dataset's items i % 12 == 0 and i % 12 == 1, batched as B = 2), then
@@ -19,8 +31,8 @@ versions); without a card, cuda raises. On the card, 64-wide heads need
 the override model.compute_dtype=bfloat16 (kernel A takes bf16).
 --checkpoint DIR restores a training/checkpoints.CheckpointManager
 directory. Not ported yet, and refused: a reference .ckpt file
-(ROADMAP.md section 1 item 4), --mode train|test (item 3), multi-host
-runs (item 7).
+(ROADMAP.md section 1 item 4), multi-host runs and training.devices or
+training.model_parallel above 1 (item 7).
 """
 
 from __future__ import annotations
@@ -33,10 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .main import TRAINER_ITEM, build_body
-
-IMPORT_ITEM = "ROADMAP.md section 1 item 4 (training/torch_import.py)"
-PARALLEL_ITEM = "ROADMAP.md section 1 item 7 (parallelism)"
+from .main import build_body, refuse_checkpoint_file, refuse_multihost
 
 
 def parse_args(argv=None):
@@ -99,18 +108,6 @@ def _concat_frames(batches):
         smpl_parms={k: cat([b.smpl_parms[k] for b in batches]) for k in first.smpl_parms},
         cam_parms={k: cat([b.cam_parms[k] for b in batches]) for k in first.cam_parms},
         audio_features=cat([b.audio_features for b in batches]))
-
-
-def _refuse_multihost(cfg) -> None:
-    """The JAX CLI initializes a multi-process runtime when the config or
-    the environment asks for one; the port has none yet."""
-    want = os.environ.get("AMA_MULTIHOST", "") not in ("", "0", "false")
-    want = want or bool(os.environ.get("JAX_COORDINATOR_ADDRESS"))
-    training = cfg.get("training") or {}
-    if want or bool(training.get("multihost", False)):
-        raise NotImplementedError(
-            f"a multi-host run (training.multihost, AMA_MULTIHOST or "
-            f"JAX_COORDINATOR_ADDRESS) is not ported yet: {PARALLEL_ITEM}")
 
 
 class _Clock:
@@ -318,9 +315,105 @@ def run_demo(cfg, rollout, ac, audio_path, output_path, prewarm: bool = False
             "seconds": clock.seconds, "chunk_seconds": chunk_seconds}
 
 
+def run_train(cfg, rollout, state, resume: bool = False) -> dict:
+    """--mode train (see the module docstring). Returns the steps' metrics
+    (the cache depth as `cache_iter`) and seconds, each step timed until its
+    metrics are read back (a read that waits for the card)."""
+    from .data.factory import DatasetFactory
+    from .data.synthetic import to_device
+    from .training.checkpoints import CheckpointManager
+    from .training.stage2 import Stage2TrainLoop, cache_depth_channels
+    from .training.trainer import MetricLogger, save_comparison_image
+
+    device, model, statics = rollout.device, rollout.model, rollout.statics
+    train_data = DatasetFactory.create_dataloader(cfg, split="train", device=device)
+    loop = Stage2TrainLoop(
+        model, statics, model.cfg,
+        replacement_prob=float(cfg.training.get("cache_replacement_prob", 0.0)))
+    fast = bool(cfg.training.get("fast_dev_run"))
+    max_epochs = 1 if fast else int(cfg.training.max_epochs)
+    out_dir = cfg.training.output_dir
+    ckpt_mgr = None
+    if not fast:
+        ckpt_mgr = CheckpointManager(
+            os.path.join(out_dir, "checkpoints"),
+            max_to_keep=int(cfg.training.get("validation", {}).get("save_top_k", 3)))
+        if resume:
+            state, ok = ckpt_mgr.restore(state)
+            print(f"[main2] resume: {'ok' if ok else 'no checkpoint'}")
+    logger = MetricLogger(
+        os.path.join(out_dir, "tb"),
+        use_wandb=bool(cfg.training.get("logging", {}).get("use_wandb", False)))
+    log_every = int(cfg.training.get("logging", {}).get("log_every_n_steps", 10))
+    image_every = 1 if fast else 200
+    images = os.path.join(out_dir, "audio_rendered_images")
+    steps, step = [], 0
+    for epoch in range(max_epochs):
+        for ref, tgt, bid in train_data:
+            t0 = time.perf_counter()
+            state, metrics = loop.run_step(state, to_device(ref, device),
+                                           to_device(tgt, device), bid)
+            depth = int(metrics.pop("cache_iter"))
+            metrics = {k: float(v) for k, v in metrics.items()}
+            steps.append({"metrics": dict(metrics), "cache_iter": depth,
+                          "seconds": time.perf_counter() - t0})
+            metrics.update(cache_depth_channels(metrics["l1_target"], depth))
+            if step % log_every == 0:
+                logger.log(step, metrics, "train")
+                print(f"[e{epoch} s{step}] " + " ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items() if not np.isnan(v)))
+            if step % image_every == 0:
+                save_comparison_image(
+                    os.path.join(images, f"audio_comparison_{step}_iter{depth}.png"),
+                    loop.last_rendered[0].float().cpu().numpy(),
+                    np.transpose(np.asarray(tgt.video[0]), (0, 2, 3, 1)))
+                if loop.last_ref_rendered is not None:
+                    save_comparison_image(
+                        os.path.join(images, f"ref_comparison_{step}.png"),
+                        loop.last_ref_rendered[0].float().cpu().numpy(),
+                        np.transpose(np.asarray(ref.video[0]), (0, 2, 3, 1)))
+            step += 1
+            if fast:
+                break
+        if ckpt_mgr is not None:
+            ckpt_mgr.save(step, state)
+        if fast:
+            break
+    logger.close()
+    print("[main2] training done")
+    return {"steps": steps}
+
+
+def run_test(cfg, rollout) -> dict:
+    """--mode test (see the module docstring) -> {"l1": mean, "batches": n}."""
+    from .data.factory import DatasetFactory
+    from .data.synthetic import to_device
+    from .training.stage2 import make_predict_step
+    from .training.trainer import save_comparison_image
+    from .utils import losses as L
+
+    device, model = rollout.device, rollout.model
+    data = DatasetFactory.create_dataloader(cfg, split="val", device=device)
+    pred = make_predict_step(model, rollout.statics, model.cfg)
+    out_dir = os.path.join(cfg.training.output_dir, "predict_results")
+    tot, n = 0.0, 0
+    for ref, tgt, _ in data:
+        ref, tgt = to_device(ref, device), to_device(tgt, device)
+        rendered, _, _ = pred(ref, tgt)
+        tgt_hwc = tgt.video.permute(0, 1, 3, 4, 2)
+        tot += float(L.l1_loss(rendered, tgt_hwc))
+        if n < 4:
+            save_comparison_image(os.path.join(out_dir, f"audio_comparison_{n}.png"),
+                                  rendered[0].float().cpu().numpy(),
+                                  tgt_hwc[0].float().cpu().numpy())
+        n += 1
+    print(f"[main2] test l1={tot / max(n, 1):.5f} over {n} batches")
+    return {"l1": tot / max(n, 1), "batches": n}
+
+
 def main(argv=None):
-    """Run the CLI; the demo returns run_demo's summary with the build's
-    seconds added (None with --prewarm)."""
+    """Run the CLI. Returns the demo's run_demo summary with the build's
+    seconds added (None with --prewarm), run_train's or run_test's."""
     args = parse_args(argv)
     t0 = time.perf_counter()
     from .configs import ConfigLoader
@@ -329,30 +422,31 @@ def main(argv=None):
     from .device import resolve_device
 
     cfg = ConfigLoader.load_config(args.config, args.overrides)
-    _refuse_multihost(cfg)
-    if args.mode != "demo":
-        raise NotImplementedError(
-            f"main2 --mode {args.mode} runs through the trainer, which is not ported "
-            f"yet: {TRAINER_ITEM}")
-    if args.checkpoint and not os.path.isdir(args.checkpoint):
-        raise NotImplementedError(
-            f"--checkpoint {args.checkpoint!r} is a file: importing a reference .ckpt "
-            f"is not ported yet ({IMPORT_ITEM}); a CheckpointManager directory "
-            "restores")
+    refuse_multihost(cfg)
+    refuse_checkpoint_file(args.checkpoint)
+    if args.mode == "train":
+        from .training.trainer import refuse_parallel
+        refuse_parallel(cfg)
     cfg = default_affine_norm_for_import(cfg, args.checkpoint)
     device = resolve_device(args.device)
 
     np.random.seed(int(cfg.get("seed", 42)))
     os.makedirs(cfg.training.output_dir, exist_ok=True)
 
-    # inference only: the serving profile's knobs unless the YAML names them
-    ac = apply_serving_profile(build_avatar_config(cfg), cfg)
+    ac = build_avatar_config(cfg)
+    if args.mode == "demo":
+        # inference only: the serving profile's knobs unless the YAML names them
+        ac = apply_serving_profile(ac, cfg)
     rollout = build_stage2(cfg, ac, device)
     state = init_state2(rollout.model, cfg)
     if args.checkpoint:
         from .training.checkpoints import CheckpointManager
         state, ok = CheckpointManager(args.checkpoint).restore(state)
         print(f"[main2] checkpoint restore: {'ok' if ok else 'none found'}")
+    if args.mode == "train":
+        return run_train(cfg, rollout, state, resume=args.resume)
+    if args.mode == "test":
+        return run_test(cfg, rollout)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0

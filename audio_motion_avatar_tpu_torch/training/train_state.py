@@ -10,6 +10,10 @@ The JAX package's optax chain, step for step and in float32:
   m_hat / (sqrt(v_hat) + 1e-8) scaled by -lr(n) at the n-th applied update
   (n from 0; the bias correction powers by n + 1): Adam and the schedule
   count the same updates;
+- AdamW where weight_decay > 0 (optax.adamw): the decay is decoupled, added
+  to Adam's update as weight_decay * p for every trainable parameter (no
+  mask) before the update is scaled by -lr(n), after the clip and inside
+  the same guard and accumulation;
 - the schedule: linear from lr to lr * end_factor over total_steps -
   warmup_steps updates, after a linear warmup from 0 when warmup_steps > 0;
 - apply_if_finite (nan_guard): a non-finite gradient is skipped (zero
@@ -92,8 +96,6 @@ class Optimizer:
     """The chain above over a fixed, ordered set of named parameters."""
 
     def __init__(self, cfg: OptimConfig, params: Dict[str, torch.Tensor]):
-        if cfg.weight_decay > 0:
-            raise NotImplementedError("weight_decay > 0 (optax.adamw) is not ported")
         self.cfg = cfg
         self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
@@ -148,6 +150,8 @@ class Optimizer:
             self.nu[k] = (1 - b2) * (g * g) + b2 * self.nu[k]
             upd = (self.mu[k] / bc1.to(p.device)) / (
                 torch.sqrt(self.nu[k] / bc2.to(p.device)) + ADAM_EPS)
+            if cfg.weight_decay > 0:
+                upd = upd + cfg.weight_decay * p
             p.add_(step.to(p.device) * upd)
 
     @torch.no_grad()

@@ -2,7 +2,8 @@
 and an mp4 with the speech track muxed in.
 
 `write_frames` encodes 8-bit RGB PNGs with the standard library (zlib,
-struct), so it needs neither PIL nor cv2 (`read_png` reads them back). `write_mp4` needs cv2 (imported
+struct; utils/images.py), so it needs neither PIL nor cv2 (`read_png` reads
+them back). `write_mp4` needs cv2 (imported
 when called): without it the mp4 is skipped with one printed line, as the
 JAX package keeps a silent video when ffmpeg is missing; the frames are
 written all the same.
@@ -11,60 +12,17 @@ written all the same.
 from __future__ import annotations
 
 import os
-import struct
 import subprocess
-import zlib
 from typing import Optional, Sequence
 
 import numpy as np
+
+from .images import encode_png, read_png  # noqa: F401  (read_png: the frames' reader)
 
 
 def to_uint8(frame) -> np.ndarray:
     """(H, W, 3) float in [0, 1] -> uint8, as the JAX writer rounds."""
     return np.clip(np.asarray(frame) * 255, 0, 255).astype(np.uint8)
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 -> the bytes of an 8-bit RGB PNG (no row filters)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {img.shape}")
-    h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _chunk(b"IEND", b""))
-
-
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit RGB PNG written by encode_png (no row filters) -> (H, W, 3)
-    uint8."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, size = 8, [], None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            size = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    w, h, depth, colour = size[:4]
-    if (depth, colour) != (8, 2):
-        raise ValueError(f"{path}: not 8-bit RGB")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: row filters are not supported")
-    return rows[:, 1:].reshape(h, w, 3)
 
 
 def write_frames(frames: Sequence[np.ndarray], out_dir: str, prefix: str = "frame"):

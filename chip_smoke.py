@@ -133,6 +133,30 @@ Phases (any failure exits non-zero):
                the build, data, stage-1 tokens, audio features, each chunk's
                rollout, losses, overlays and writing, the demo's and the
                rollouts' fps, peak memory and whether the mp4s were written.
+ 13a. small CLI — main.main --mode train, then --mode test from its checkpoint,
+               on a THuman-layout fixture, and main2.main --mode train, then
+               --mode test, on a TED-layout fixture (both written by the port,
+               read through its PNG decoder and resize), config_tiny.yaml,
+               fp32, on the card and with --device cpu, the card fed the CPU's
+               ViT tokens: every logged loss and metric within 1e-4 relative;
+               the card's K1 / K2 / A / A-bwd launches as the config implies;
+ 13. train CLI, stage 1 — main.main --mode train on config_stage_1.yaml (bf16)
+               with the THuman reader on a fixture under build/cli/ (8 + 2
+               subjects x 12 views at 1024^2) from phase 10's seeded weights:
+               8 micro-steps (two updates), validation, the monitored
+               checkpoint; then --mode test from it, equal to the fit's
+               validation (renders within 1e-5, the rest within one bf16
+               unit); finite losses, moved parameters, a
+               bit-identical ViT, the outputs, the launches; the ms of a
+               micro-step beside phase 10's, the reader's host seconds, peak
+               memory; and the host's seconds to decode a 1920 x 1080 PNG
+               under each row filter and to resize it;
+ 14. train CLI, stage 2 — main2.main --mode train on config_stage_2.yaml (bf16)
+               with the TED reader on a 42-frame clip at 1296 x 2304 from
+               phase 11's seeded weights, B = 2: 7 steps, the last taking the
+               prediction cache; then --mode test from its checkpoint; the
+               same checks, the cache depth of each step, the ms of a step
+               beside phase 11's.
 Each phase prints its seconds. Then one {"kernels": [...]} line (nine
 kernels: splash is kernel A under the JAX package's splash name), the
 card's name and power limit, and as the last line {"ok": true, "device":
@@ -2315,6 +2339,709 @@ def full_demo(dev):
     return launches
 
 
+CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli")
+CLI_COUNTERS = ("attention", "attention_bwd", "composite_tiles", "composite_tiles_bwd")
+
+
+@contextlib.contextmanager
+def counted():
+    """K1, K2, A and A-bwd counted from 0 inside the block: yields the dict
+    their launches are read into when it ends."""
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    fns = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    for fn in fns:
+        fn.launches = 0
+    out = {}
+    yield out
+    out.update({fn.__name__: fn.launches for fn in fns})
+
+
+@contextlib.contextmanager
+def vit_tokens(store, replay):
+    """The Sapiens ViT's outputs of a run recorded into `store` (replay
+    False), or replayed from it in order on the run's device (replay True):
+    the ViT computes in bf16 whatever the config says and rounds differently
+    on the card and the CPU, so the card's run is fed the CPU's tokens, as
+    phase 9 feeds them."""
+    from audio_motion_avatar_tpu_torch.models.image_encoder import SapiensEncoder
+    orig = SapiensEncoder.forward
+    queue = list(store)
+
+    def forward(self, images):
+        if replay:
+            return queue.pop(0).to(images.device)
+        out = orig(self, images)
+        store.append(out.detach().cpu())
+        return out
+
+    SapiensEncoder.forward = forward
+    try:
+        yield
+    finally:
+        SapiensEncoder.forward = orig
+    if replay and queue:
+        raise AssertionError(f"{len(queue)} recorded ViT outputs were not replayed")
+
+
+@contextlib.contextmanager
+def host_seconds(cls, method, into, key):
+    """Seconds spent in cls.method (summed into into[key], calls counted
+    under key + ' calls') while the block runs."""
+    orig = getattr(cls, method)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            into[key] = into.get(key, 0.0) + time.perf_counter() - t0
+            into[key + " calls"] = into.get(key + " calls", 0) + 1
+
+    setattr(cls, method, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, method, orig)
+
+
+def forward_launches(cfg, stage, B, T_in, T_out=0, novel=False):
+    """Launches of a forward without autograd: stage 1 renders the B x T_in
+    reference frames (and, with novel, the test views in one more K1);
+    stage 2 (the predict step) runs the stage-1 pass with the render off,
+    then the rollout of B x T_out frames. No remat recompute."""
+    def wide(head_dim):
+        return head_dim == 64
+
+    def chunks(frames):
+        F = cfg.frames_per_chunk
+        return frames // F if F > 0 and frames % F == 0 else frames
+
+    stage1 = ((cfg.vit_depth if wide(cfg.image_feature_dim // cfg.vit_heads) else 0)
+              + (2 * cfg.smplx_transformer_layers if wide(cfg.smplx_transformer_head_dim) else 0)
+              + (2 * cfg.cross_transformer_layers if wide(cfg.cross_transformer_head_dim) else 0))
+    dec0 = cfg.ptv3_dec_depths[0] if not cfg.no_point_refiner and \
+        wide(cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0]) else 0
+    if stage == 1:
+        ref = chunks(B * T_in)
+        return {"attention": stage1 + dec0 * ref, "attention_bwd": 0,
+                "composite_tiles": ref + int(novel), "composite_tiles_bwd": 0}
+    audio = cfg.audio_transformer_layers * T_out if wide(cfg.audio_transformer_head_dim) else 0
+    out = chunks(B * T_out)
+    return {"attention": stage1 + audio + dec0 * out, "attention_bwd": 0,
+            "composite_tiles": out, "composite_tiles_bwd": 0}
+
+
+def add_launches(*parts):
+    """Sum of {kernel: launches} dicts (each optionally times a count)."""
+    total = {k: 0 for k in CLI_COUNTERS}
+    for part, n in parts:
+        for k in CLI_COUNTERS:
+            total[k] += n * part[k]
+    return total
+
+
+def png_write(path, img):
+    from audio_motion_avatar_tpu_torch.utils.images import encode_png
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def thuman_fixture(root, body, dev, subjects, views, size, render_size=None, seed=0):
+    """A THuman-layout dataset written by the port (utils/images PNGs, calib
+    JSON, smplx_param.pkl, vertices.npy): each subject a seeded pose of the
+    synthetic body (global_orient 0 and transl (0, 0.35, 0), as the reader
+    sets them; the renders place it at that transl) rendered by
+    render_gt_video from `views` cameras orbiting it
+    at render_size^2 (default: size, the config's), and train.txt / val.txt
+    lists: subjects = (n_train, n_val) lists the first n_train subjects for
+    training and the next n_val for validation (all of them when n_val is
+    0). Returns the seconds it took."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from audio_motion_avatar_tpu_torch.data.containers import VideoBatch
+    from audio_motion_avatar_tpu_torch.data.synthetic import random_smpl_params, render_gt_video
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+    from audio_motion_avatar_tpu_torch.ops.cameras import orbit_camera
+    from audio_motion_avatar_tpu_torch.utils.video import to_uint8
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    render_size = render_size or size
+    names = [f"{i:04d}" for i in range(sum(subjects))]
+    for i, subj in enumerate(names):
+        rng = np.random.RandomState(seed + i)
+        one = random_smpl_params(rng, (1, 1))
+        one["global_orient"][:] = 0.0
+        one["transl"][:] = (0.0, 0.35, 0.0)
+        smpl = {k: np.repeat(v, views, axis=1) for k, v in one.items()}
+        cams = [orbit_camera(angle=2 * np.pi * v / views + 0.3 * i, height=0.35,
+                             focal=1.2 * render_size, image_size=(render_size, render_size))
+                for v in range(views)]
+        Ks, Es = (np.stack([c[j] for c in cams])[None] for j in (0, 1))
+        placed = Es @ translation(one["transl"][0, 0])
+        video = render_gt_video(body, VideoBatch(None, smpl, {"intrinsic": Ks,
+                                                              "extrinsic": placed}),
+                                (render_size, render_size), dev)[0]
+        base = os.path.join(root, subj, "12views_3")
+        os.makedirs(os.path.join(base, "calib"))
+        for v in range(views):
+            png_write(os.path.join(base, "render", f"{v:03d}.png"),
+                      to_uint8(video[v].transpose(1, 2, 0)))
+            with open(os.path.join(base, "calib", f"{v:03d}.json"), "w") as f:
+                json.dump({"extrinsic": Es[0, v].tolist(), "intrinsic": Ks[0, v].tolist()}, f)
+        verts = smplx_ops.forward(smplx_ops.as_tensors(body, "cpu"),
+                                  {k: torch.as_tensor(v[:, 0]) for k, v in one.items()})
+        np.save(os.path.join(base, "vertices.npy"), verts[0].numpy().astype(np.float32))
+        os.makedirs(os.path.join(root, "smplx", subj))
+        with open(os.path.join(root, "smplx", subj, "smplx_param.pkl"), "wb") as f:
+            pickle.dump({k: v[0, 0].astype(np.float64) for k, v in one.items()}, f)
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(names[:subjects[0]]) + "\n")
+    with open(os.path.join(root, "val.txt"), "w") as f:
+        f.write("\n".join(names[subjects[0]:] or names) + "\n")
+    return time.perf_counter() - t0
+
+
+def translation(t):
+    """The 4 x 4 that moves a point by t: render_gt_video poses the body
+    without its transl, so a camera E sees the placed body through
+    E @ translation(transl)."""
+    import numpy as np
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = t
+    return T
+
+
+
+TED_DEPTH = 4.0     # the speaker's distance from the TED fixture's camera
+
+
+def ted_fixture(root, body, dev, frames, size, render_size=None, seed=0, chunk=6):
+    """A TED-layout clip written by the port: `frames` frames of the
+    synthetic body (a seeded pose a frame, TED_DEPTH units in front of an
+    identity camera, K from focal 1.2 H and the centre) rendered by
+    render_gt_video at render_size (default: size, the config's (H, W)),
+    grey masks (the body's silhouette, soft-edged), SMPL-X JSONs and a 16 kHz
+    wav of the clip's length. Returns the seconds it took."""
+    import shutil
+
+    import numpy as np
+    from audio_motion_avatar_tpu_torch.data.containers import VideoBatch
+    from audio_motion_avatar_tpu_torch.data.speech import write_wav
+    from audio_motion_avatar_tpu_torch.data.synthetic import random_smpl_params, render_gt_video
+    from audio_motion_avatar_tpu_torch.utils.video import to_uint8
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    H, W = render_size or size
+    focal, princpt = 1.2 * H, (W / 2.0, H / 2.0)
+    K = np.array([[focal, 0, princpt[0]], [0, focal, princpt[1]], [0, 0, 1]], np.float32)
+    smpl = random_smpl_params(np.random.RandomState(seed), (1, frames))
+    smpl["transl"][:] = (0.0, 0.0, TED_DEPTH)
+    keys = {"betas": "betas", "trans": "transl", "root_pose": "global_orient",
+            "body_pose": "body_pose", "lhand_pose": "left_hand_pose",
+            "rhand_pose": "right_hand_pose", "jaw_pose": "jaw_pose", "leye_pose": "leye_pose",
+            "reye_pose": "reye_pose", "expression": "expression"}
+    for c0 in range(0, frames, chunk):
+        sl = slice(c0, min(frames, c0 + chunk))
+        n = sl.stop - sl.start
+        # the reader's camera is the identity; the speaker stands at transl
+        cams = {"intrinsic": np.tile(K, (1, n, 1, 1)),
+                "extrinsic": np.tile(translation((0.0, 0.0, TED_DEPTH)), (1, n, 1, 1))}
+        video = render_gt_video(body, VideoBatch(None, {k: v[:, sl] for k, v in smpl.items()},
+                                                 cams), (H, W), dev)[0]
+        for j in range(n):
+            i = c0 + j
+            img = video[j].transpose(1, 2, 0)
+            png_write(os.path.join(root, "imgs_png", f"{i:05d}.png"), to_uint8(img))
+            mask = np.clip((1.0 - img.min(axis=-1)) * 8.0, 0.0, 1.0)
+            png_write(os.path.join(root, "samurai_seg", f"{i:05d}.png"), to_uint8(mask))
+            params = {jk: smpl[pk][0, i].tolist() for jk, pk in keys.items()}
+            params.update(focal=[focal, focal], princpt=list(princpt))
+            os.makedirs(os.path.join(root, "smplx_params"), exist_ok=True)
+            with open(os.path.join(root, "smplx_params", f"{i:05d}.json"), "w") as f:
+                json.dump(params, f)
+    t = np.arange(int(16000 * frames / 24.0)) / 16000.0
+    write_wav(os.path.join(root, "speech.wav"),
+              0.3 * np.sin(2 * np.pi * 220.0 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)))
+    return time.perf_counter() - t0
+
+
+def logged_scalars(out):
+    """(step, tag, value) of every event file under <out>/tb (the test run's
+    trainer opens one too, without scalars)."""
+    from audio_motion_avatar_tpu_torch.training.trainer import read_scalars
+    tb = os.path.join(out, "tb")
+    return [x for name in sorted(os.listdir(tb)) for x in read_scalars(os.path.join(tb, name))]
+
+
+def close_rel(got, want, tol, floor):
+    return abs(got - want) <= tol * max(abs(want), floor)
+
+
+def check_small_cli(dev):
+    """13a: the training CLIs at the tiny size, on the card and on the CPU
+    (--device cpu), on fixtures the port writes: config_tiny.yaml, fp32.
+    main.main --mode train (a THuman layout of 2 subjects x 4 views rendered
+    at 48^2 and read at 32^2: one epoch of 2 micro-steps at accumulate 1,
+    validation over both subjects, the monitored checkpoint), then --mode
+    test from that checkpoint; main2.main --mode train (a TED layout of 18
+    frames at 48 x 64 read at 32^2, batch 1: 2 steps, one epoch, the
+    checkpoint), then --mode test from it. The card's run is fed the CPU
+    run's ViT tokens (vit_tokens). Phase 9's rule for fp32: every logged
+    train loss, validation metric and test metric of the card within 1e-4
+    of the CPU's, relative (absolute below 1e-2 in magnitude). The card's
+    K1, K2, A and A-bwd launches equal the count the config implies (A and
+    A-bwd 0: the tiny heads are not 64 wide)."""
+    import shutil
+
+    import torch
+    from audio_motion_avatar_tpu_torch import main as cli1
+    from audio_motion_avatar_tpu_torch import main2 as cli2
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import build_avatar_config
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+
+    config = os.path.join(PORT_CONFIGS, "config_tiny.yaml")
+    body = smplx_ops.synthetic_model(seed=0, num_verts=400)
+    thuman = os.path.join(CLI_DIR, "tiny_thuman")
+    ted = os.path.join(CLI_DIR, "tiny_ted")
+    thuman_fixture(thuman, body, "cpu", (2, 0), 4, 32, render_size=48)
+    ted_fixture(ted, body, "cpu", 18, (32, 32), render_size=(48, 64))
+    common = ["training.fast_dev_run=false", "training.max_epochs=1",
+              "training.logging.log_every_n_steps=1", "dataset.image_size=[32,32]"]
+    s1 = ["dataset.type=ThumanDataset", f"dataset.dataset_root={thuman}",
+          f"dataset.smplx_params_path={thuman}/smplx", "dataset.n_test=3", "dataset.pcd_nums=50",
+          "training.gradient_accumulate_steps=1", *common]
+    s2 = ["dataset.type=GaussianAudioDataset", f"dataset.root_dir={ted}",
+          "dataset.clip_length=8", "training.cache_replacement_prob=1.0", *common]
+    runs, tokens = {}, []
+    for d in ("cpu", dev):
+        tag = torch.device(d).type
+        out1 = os.path.join(CLI_DIR, f"tiny1_{tag}")
+        shutil.rmtree(out1, ignore_errors=True)
+        t0 = time.perf_counter()
+        with vit_tokens(tokens, replay=tag != "cpu"), counted() as l1:
+            cli1.main(["--device", str(d), "--config", config, "--mode", "train",
+                       f"training.output_dir={out1}", *s1])
+            m1 = cli1.main(["--device", str(d), "--config", config, "--mode", "test",
+                            "--checkpoint", os.path.join(out1, "checkpoints"),
+                            f"training.output_dir={out1}", *s1])
+        logged = [(t, v) for _, t, v in logged_scalars(out1)
+                  if t == "train/loss" or t.startswith("val/")]
+        runs[tag] = {"stage 1 logged": logged, "stage 1 test": m1, "launches 1": l1,
+                     "seconds 1": time.perf_counter() - t0}
+    print(f"[small CLI] stage 1 (main train + test): CPU {runs['cpu']['seconds 1']:.1f} s, "
+          f"card {runs['cuda']['seconds 1']:.1f} s", flush=True)
+
+    tokens2 = []
+    for d in ("cpu", dev):
+        tag = torch.device(d).type
+        out2 = os.path.join(CLI_DIR, f"tiny2_{tag}")
+        shutil.rmtree(out2, ignore_errors=True)
+        t0 = time.perf_counter()
+        with vit_tokens(tokens2, replay=tag != "cpu"), counted() as l2:
+            train = cli2.main(["--device", str(d), "--config", config, "--mode", "train",
+                               f"training.output_dir={out2}", *s2])
+            test = cli2.main(["--device", str(d), "--config", config, "--mode", "test",
+                              "--checkpoint", os.path.join(out2, "checkpoints"),
+                              f"training.output_dir={out2}", *s2])
+        runs[tag].update({"stage 2 losses": [st["metrics"]["loss"] for st in train["steps"]],
+                          "stage 2 test": test["l1"], "launches 2": l2,
+                          "seconds 2": time.perf_counter() - t0})
+    cpu, card = runs["cpu"], runs["cuda"]
+    print(f"[small CLI] stage 2 (main2 train + test): CPU {cpu['seconds 2']:.1f} s, card "
+          f"{card['seconds 2']:.1f} s", flush=True)
+
+    pairs = [(f"stage 1 {t}", g, w) for (t, g), (_, w) in zip(card["stage 1 logged"],
+                                                              cpu["stage 1 logged"])]
+    pairs += [(f"stage 1 test {k}", card["stage 1 test"][k], v)
+              for k, v in cpu["stage 1 test"].items()]
+    pairs += [(f"stage 2 step {i} loss", g, w)
+              for i, (g, w) in enumerate(zip(card["stage 2 losses"], cpu["stage 2 losses"]))]
+    pairs.append(("stage 2 test l1", card["stage 2 test"], cpu["stage 2 test"]))
+    worst = max(abs(g - w) / max(abs(w), 1e-2) for _, g, w in pairs)
+    print(f"[small CLI] {len(pairs)} logged values card vs CPU: worst relative {worst:.3e} "
+          f"(tol 1e-4); stage 1 train losses card "
+          f"{[round(v, 6) for t, v in card['stage 1 logged'] if t == 'train/loss']} CPU "
+          f"{[round(v, 6) for t, v in cpu['stage 1 logged'] if t == 'train/loss']}; stage 2 "
+          f"losses card {[round(v, 6) for v in card['stage 2 losses']]} CPU "
+          f"{[round(v, 6) for v in cpu['stage 2 losses']]}", flush=True)
+    bad = [(n, g, w) for n, g, w in pairs if not close_rel(g, w, 1e-4, 1e-2)]
+    if len(card["stage 1 logged"]) != len(cpu["stage 1 logged"]) or \
+            len(card["stage 2 losses"]) != 2 or bad:
+        raise AssertionError(f"the tiny CLIs on the card disagree with the CPU: {bad[:6]}")
+
+    def cfg_of(over):
+        return build_avatar_config(ConfigLoader.load_config(config, over))
+
+    ac1, ac2 = cfg_of(s1), cfg_of(s2)
+    n_views = 3 - 1    # n_test - 1 of the 4 views
+    want1 = add_launches((train_launches(ac1, 1, 1, 1, n_views), 2),
+                         (forward_launches(ac1, 1, 1, 1), 1),             # step 0's PNG
+                         (forward_launches(ac1, 1, 1, 1, novel=True), 2 + 2),   # val + test
+                         (forward_launches(ac1, 1, 1, 1), 2))             # test's PNGs
+    want2 = add_launches((train_launches(ac2, 2, 1, 2, 6), 2),
+                         (forward_launches(ac2, 2, 1, 2, 6), 2))
+    print(f"[small CLI] card launches: stage 1 {card['launches 1']} expected {want1}; stage 2 "
+          f"{card['launches 2']} expected {want2}", flush=True)
+    if card["launches 1"] != want1 or card["launches 2"] != want2:
+        raise AssertionError("the tiny CLIs' launches differ from what the config implies")
+
+
+def cli_checkpoint(stage, config, over, directory):
+    """Seeded weights as phases 10 and 11 make them (perturbed heads, made
+    visible at full width; stage 2's token update tamed and its decoded body
+    placed TED_DEPTH in front of the camera, as the TED fixture's), built on the CPU
+    with a one-block ViT (the frozen ViT is not in a checkpoint) and saved
+    by the port's CheckpointManager: the state the CLI's --checkpoint
+    restores. Returns the saved trainable parameters (CPU)."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from audio_motion_avatar_tpu_torch import main as cli1
+    from audio_motion_avatar_tpu_torch import main2 as cli2
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import build_avatar_config
+    from audio_motion_avatar_tpu_torch.models.avatar import TriplaneGaussianAvatar
+    from audio_motion_avatar_tpu_torch.serve import num_verts_encoder
+    from audio_motion_avatar_tpu_torch.training.checkpoints import CheckpointManager
+    from audio_motion_avatar_tpu_torch.weights import init_weights, perturb_heads
+
+    cfg = ConfigLoader.load_config(config, over)
+    ac = dataclasses.replace(build_avatar_config(cfg), vit_depth=1)
+    body = cli1.build_body(cfg, ac)
+    if stage == 1:
+        model = TriplaneGaussianAvatar(ac, num_verts_encoder(body))
+        init_weights(model, 0)
+        perturb_heads(model, seed=1, std=1e-2)
+        visible_heads(model, scale_bias=-1.0, opacity_bias=0.0)
+        state = cli1.init_state(model, cfg)
+    else:
+        model = cli2.build_stage2(cfg, ac, "cpu").model
+        perturb_heads(model, seed=1, std=1e-2)
+        tame_seeded_weights(model)
+        visible_heads(model, scale_bias=-1.0, opacity_bias=0.0)
+        # the decoded body where the TED clip's speaker stands: in front of
+        # the identity camera
+        with torch.no_grad():
+            model.smpl_decoder.transl.bias.copy_(torch.tensor([0.0, 0.0, TED_DEPTH]))
+        state = cli2.init_state2(model, cfg)
+    shutil.rmtree(directory, ignore_errors=True)
+    CheckpointManager(directory).save(0, state)
+    return {k: p.detach().clone() for k, p in state.trainable.items()}
+
+
+@contextlib.contextmanager
+def built_models(module, name, model_of, into):
+    """The models module.name builds while the block runs: (the model, its
+    ViT's parameters as built, on the CPU) appended to `into`."""
+    orig = getattr(module, name)
+
+    def build(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        model = model_of(out)
+        into.append((model, vit_snapshot(model)))
+        return out
+
+    setattr(module, name, build)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def trained_checks(tag, model, start, vit_before, losses):
+    """Finite losses, trainable parameters moved from the checkpoint the run
+    started from, the frozen ViT bit-identical to its build."""
+    import math
+
+    import torch
+    moved = sum(not torch.equal(p.detach().cpu(), start[k])
+                for k, p in model.named_parameters() if k in start)
+    vit = {k: p for k, p in model.named_parameters() if "sapiens_encoder" in k.split(".")}
+    same = all(torch.equal(p.detach().cpu(), vit_before[k]) for k, p in vit.items())
+    print(f"[{tag}] {moved} of {len(start)} trainable tensors moved from the checkpoint; frozen "
+          f"ViT ({len(vit)} tensors) bit-identical: {same}; losses finite "
+          f"{all(math.isfinite(v) for v in losses)}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or moved == 0 or not same or not vit:
+        raise AssertionError(f"{tag}: non-finite losses, no parameter moved or the ViT changed")
+
+
+def vit_snapshot(model):
+    return {k: p.detach().cpu().clone() for k, p in model.named_parameters()
+            if "sapiens_encoder" in k.split(".")}
+
+
+def peak_memory(dev, reset=False):
+    """Peak device memory since the last reset (0 off the card)."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def host_image_times(reps=3):
+    """The host's seconds for one 1920 x 1080 RGB frame through
+    utils/images: decode under each PNG row filter (every row the same
+    filter, written by encode_png), the stage-2 reader's resize to 2304 x
+    1296 and a 1024^2 -> 512^2 resize; the median of `reps`. A frame is a
+    seeded smooth texture with noise."""
+    import numpy as np
+    from audio_motion_avatar_tpu_torch.utils import images
+
+    rng = np.random.RandomState(0)
+    y, x = np.mgrid[0:1080, 0:1920]
+    frame = np.clip(np.stack([np.sin(x / (7.0 + k)) * 60 + np.cos(y / (5.0 + k)) * 50 + 120
+                              for k in range(3)], -1) + rng.randint(-15, 15, (1080, 1920, 3)),
+                    0, 255).astype(np.uint8)
+
+    def median(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2]
+
+    out = {}
+    for kind, name in enumerate(("None", "Sub", "Up", "Average", "Paeth")):
+        data = images.encode_png(frame, kind)
+        if not np.array_equal(images.decode_png(data).pixels, frame):
+            raise AssertionError(f"PNG decode under filter {name} does not round-trip")
+        out[f"decode {name}"] = median(lambda: images.decode_png(data))
+    out["resize to 2304 x 1296"] = median(lambda: images.resize(frame, (2304, 1296)))
+    square = frame[:1024, :1024]
+    out["resize 1024^2 -> 512^2"] = median(lambda: images.resize(square, (512, 512)))
+    print("[host images] one 1920 x 1080 RGB frame, seconds (median of "
+          f"{reps}): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def cli_train_stage1(dev, phase10_ms, size=1024, extra=()):
+    """13: `main.main --mode train` at full width: config_stage_1.yaml with
+    model.compute_dtype=bfloat16 and the THuman reader on a fixture under
+    build/cli/ (8 train and 2 val subjects, 12 views each rendered at 1024^2
+    from the synthetic body), from a checkpoint of phase 10's seeded weights:
+    max_epochs=1, so 8 micro-steps at accumulate 4 (two updates), then the
+    validation and the monitored checkpoint; then `main.main --mode test
+    --checkpoint <out>/checkpoints`, whose metrics must equal the fit's
+    final validation (the same weights and val split): the render metrics
+    (l1_*, ssim_*) within 1e-5 relative (they came out equal to float32
+    rounding in every run), the rest (the SMPL-X predictor's loss, the loss
+    that includes it, the gaussian heads' statistics) within one bf16 unit,
+    2^-8 of max(|value|, 0.1): these vary from run to run on the card by
+    up to 7e-4 of their value (in three runs; the bf16 predictor and
+    heads are fed by atomic scatter-adds, which sum in any order). Checks finite
+    losses, moved trainable parameters, a bit-identical ViT, the event files,
+    the comparison PNGs and config.yaml, and K1 / K2 / A / A-bwd launches as
+    the config implies; prints the ms of a micro-step through the CLI
+    (step_time_s, from before the step to its metrics read back) beside phase
+    10's, the host's seconds a step in the reader (PNG decode and resize
+    apart) and the peak memory. size and extra (overrides after the
+    phase's) rehearse it small (e.g. profile=tiny on the CPU)."""
+    import torch
+    from audio_motion_avatar_tpu_torch import main as cli1
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import build_avatar_config
+    from audio_motion_avatar_tpu_torch.data import thuman
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+
+    tag = "train CLI, stage 1"
+    host_image_times()
+    config = os.path.join(PORT_CONFIGS, "config_stage_1.yaml")
+    root, out = os.path.join(CLI_DIR, "thuman"), os.path.join(CLI_DIR, "stage1")
+    body = smplx_ops.synthetic_model(seed=0)
+    fixture_s = thuman_fixture(root, body, dev, (8, 2), 12, size)
+    over = ["model.compute_dtype=bfloat16", f"dataset.dataset_root={root}",
+            f"dataset.smplx_params_path={root}/smplx", f"dataset.train_list={root}/train.txt",
+            f"dataset.val_list={root}/val.txt", "training.max_epochs=1",
+            "training.logging.log_every_n_steps=1", f"training.output_dir={out}", *extra]
+    t0 = time.perf_counter()
+    ckpt = os.path.join(CLI_DIR, "stage1_ckpt")
+    start = cli_checkpoint(1, config, over, ckpt)
+    print(f"[{tag}] fixture (10 subjects x 12 views at {size}^2) {fixture_s:.1f} s, seeded "
+          f"checkpoint {time.perf_counter() - t0:.1f} s", flush=True)
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+
+    host, models = {}, []
+    peak_memory(dev, reset=True)
+    t0 = time.perf_counter()
+    with counted() as fit_launches, \
+            built_models(cli1, "build_everything", lambda out: out[0], models), \
+            host_seconds(thuman.ThumanDataset, "__getitem__", host, "items"), \
+            host_seconds(thuman, "load_image", host, "decode + resize"):
+        cli1.main(["--device", str(dev), "--config", config, "--mode", "train",
+                   "--checkpoint", ckpt, *over])
+    fit_s = time.perf_counter() - t0
+    peak = peak_memory(dev)
+    model, vit_before = models[0]
+    scalars = logged_scalars(out)
+    losses = [v for _, t, v in scalars if t == "train/loss"]
+    step_ms = [1e3 * v for _, t, v in scalars if t == "train/step_time_s"]
+    val = {t[4:]: v for _, t, v in scalars if t.startswith("val/")}
+    trained_checks(tag, model, start, vit_before, losses)
+    del models[:], model, vit_before
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with counted() as test_launches:
+        metrics = cli1.main(["--device", str(dev), "--config", config, "--mode", "test",
+                             "--checkpoint", os.path.join(out, "checkpoints"), *over])
+    test_s = time.perf_counter() - t0
+    ac = build_avatar_config(ConfigLoader.load_config(config, over))
+    n_views, n_val = 7, 2
+    want_fit = add_launches((train_launches(ac, 1, 1, 1, n_views), 8),
+                            (forward_launches(ac, 1, 1, 1), 1),
+                            (forward_launches(ac, 1, 1, 1, novel=True), n_val))
+    want_test = add_launches((forward_launches(ac, 1, 1, 1, novel=True), n_val),
+                             (forward_launches(ac, 1, 1, 1), n_val))
+    items = host.get("items calls", 0)
+    print(f"[{tag}] main.main train {fit_s:.1f} s ({len(losses)} micro-steps, test {test_s:.1f} "
+          f"s); losses {[round(v, 5) for v in losses]}; ms a micro-step through the CLI "
+          f"{[round(v, 1) for v in step_ms]} (mean {sum(step_ms) / len(step_ms):.1f}; phase 10 "
+          f"{phase10_ms:.1f}); the reader {host['items'] / items:.3f} s an item (8 views at "
+          f"{size}^2), of it PNG decode + resize {host['decode + resize'] / items:.3f} s "
+          f"({host['decode + resize calls']} images, "
+          f"{host['decode + resize'] / host['decode + resize calls']:.4f} s each); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"[{tag}] launches: fit {fit_launches} expected {want_fit}; test {test_launches} "
+          f"expected {want_test}", flush=True)
+    def bound(k, v):
+        render = k.startswith(("l1_", "ssim_"))
+        return 1e-5 * abs(v) if render else 2.0 ** -8 * max(abs(v), 0.1)
+
+    ratio = {k: abs(metrics[k] - v) / bound(k, v) for k, v in val.items()}
+    print(f"[{tag}] test metrics against the fit's validation: worst |diff| / bound "
+          f"{max(ratio.values()):.3f} ({max(ratio, key=ratio.get)}; bound 1e-5 relative for "
+          f"l1_* and ssim_*, else 2^-8 max(|v|, 0.1)); loss {metrics['loss']:.6f} vs "
+          f"{val['loss']:.6f}", flush=True)
+    print(f"[{tag}] each metric, test / validation / |diff|: " + ", ".join(
+        f"{k} {metrics[k]:.7g} / {v:.7g} / {abs(metrics[k] - v):.3e}" for k, v in sorted(val.items())),
+        flush=True)
+    files = [os.path.join(out, p) for p in ("config.yaml", "train_images/comparison_0.png",
+                                            "test_images/triplane_comparison_0.png")]
+    if len(losses) != 8 or sorted(metrics) != sorted(val) or max(ratio.values()) > 1.0:
+        raise AssertionError(f"{tag}: the test metrics differ from the fit's validation")
+    if not all(os.path.exists(f) for f in files) or os.listdir(os.path.join(out, "checkpoints")) \
+            != ["8"]:
+        raise AssertionError(f"{tag}: an output is missing")
+    if fit_launches != want_fit or test_launches != want_test:
+        raise AssertionError(f"{tag}: launches differ from what the config implies")
+    return fit_launches
+
+
+def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
+    """14: `main2.main --mode train` at full width: config_stage_2.yaml with
+    model.compute_dtype=bfloat16 and the TED reader on a clip under
+    build/cli/ (42 frames of the synthetic body at 1296 x 2304 with grey
+    masks, SMPL-X JSONs, a 16 kHz wav; dataset.wav2vec2_model_path a seeded
+    Wav2Vec2-base checkout), from a checkpoint of phase 11's seeded weights:
+    batch 2, one epoch of 7 steps (batch ids 0, 2, ..., 12) at
+    cache_replacement_prob 1, so the step at batch 12 takes the prediction
+    batch 0 cached; then `main2.main --mode test` from the written
+    checkpoint (14 items, B = 1). Checks finite losses, moved trainable
+    parameters, a bit-identical ViT, the event files, the comparison PNGs,
+    the cache depth of each step and K1 / K2 / A / A-bwd launches as the
+    config implies; prints the ms of a step through the CLI (to its metrics
+    read back) beside phase 11's, the host's seconds a step in the reader
+    (decode, composite and resize apart) and the peak memory. size and
+    extra rehearse it small, as in phase 13."""
+    import shutil
+
+    import torch
+    from audio_motion_avatar_tpu_torch import main2 as cli2
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import build_avatar_config
+    from audio_motion_avatar_tpu_torch.data import speech
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+
+    tag = "train CLI, stage 2"
+    config = os.path.join(PORT_CONFIGS, "config_stage_2.yaml")
+    root, out = os.path.join(CLI_DIR, "ted"), os.path.join(CLI_DIR, "stage2")
+    w2v = os.path.join(DEMO_DIR, "wav2vec2_base")
+    if not os.path.exists(os.path.join(w2v, "pytorch_model.bin")):
+        wav2vec2_checkout(w2v)
+    fixture_s = ted_fixture(root, smplx_ops.synthetic_model(seed=0), dev, 42, size)
+    over = ["model.compute_dtype=bfloat16", f"dataset.root_dir={root}",
+            f"dataset.wav2vec2_model_path={w2v}", "training.max_epochs=1",
+            "training.cache_replacement_prob=1.0", "training.logging.log_every_n_steps=1",
+            f"training.output_dir={out}", *extra]
+    t0 = time.perf_counter()
+    ckpt = os.path.join(CLI_DIR, "stage2_ckpt")
+    start = cli_checkpoint(2, config, over, ckpt)
+    print(f"[{tag}] fixture (42 frames at {size[0]} x {size[1]}) {fixture_s:.1f} s, seeded checkpoint "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+
+    host, built = {}, []
+    peak_memory(dev, reset=True)
+    t0 = time.perf_counter()
+    with counted() as fit_launches, \
+            built_models(cli2, "build_stage2", lambda roll: roll.model, built), \
+            host_seconds(speech.GaussianAudioDataset, "__getitem__", host, "items"), \
+            host_seconds(speech.GaussianAudioDataset, "_load_frame", host, "frames"):
+        summary = cli2.main(["--device", str(dev), "--config", config, "--mode", "train",
+                             "--checkpoint", ckpt, *over])
+    fit_s = time.perf_counter() - t0
+    peak = peak_memory(dev)
+    model, vit_before = built[0]
+    steps = summary["steps"]
+    losses = [st["metrics"]["loss"] for st in steps]
+    depths = [st["cache_iter"] for st in steps]
+    step_ms = [1e3 * st["seconds"] for st in steps]
+    trained_checks(tag, model, start, vit_before, losses)
+    logged = [v for _, t, v in logged_scalars(out) if t == "train/loss"]
+    del built[:], model, vit_before
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with counted() as test_launches:
+        test = cli2.main(["--device", str(dev), "--config", config, "--mode", "test",
+                          "--checkpoint", os.path.join(out, "checkpoints"), *over])
+    test_s = time.perf_counter() - t0
+    ac = build_avatar_config(ConfigLoader.load_config(config, over))
+    want_fit = add_launches((train_launches(ac, 2, 2, 2, 6), len(steps)))
+    want_test = add_launches((forward_launches(ac, 2, 1, 2, 6), test["batches"]))
+    items = host["items calls"]
+    print(f"[{tag}] main2.main train {fit_s:.1f} s ({len(steps)} steps, test {test_s:.1f} s over "
+          f"{test['batches']} items, l1 {test['l1']:.5f}); losses {[round(v, 5) for v in losses]}; "
+          f"cache depth a step {depths}; ms a step through the CLI "
+          f"{[round(v, 1) for v in step_ms]} (mean {sum(step_ms) / len(step_ms):.1f}, without the "
+          f"first {sum(step_ms[1:]) / max(len(step_ms) - 1, 1):.1f}; phase 11 {phase11_ms:.1f}); "
+          f"the reader {host['items'] / items:.3f} s an item (8 frames), "
+          f"{2 * host['items'] / items:.3f} s a step of 2, of it decode + composite + resize "
+          f"{host['frames'] / host['frames calls']:.4f} s a frame; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"[{tag}] launches: fit {fit_launches} expected {want_fit}; test {test_launches} "
+          f"expected {want_test}", flush=True)
+    images = os.path.join(out, "audio_rendered_images")
+    files = [os.path.join(images, "audio_comparison_0_iter0.png"),
+             os.path.join(images, "ref_comparison_0.png")] + \
+        [os.path.join(out, "predict_results", f"audio_comparison_{n}.png") for n in range(4)]
+    if len(steps) != 7 or depths != [0] * 6 + [1] or \
+            [round(v, 4) for v in logged] != [round(v, 4) for v in losses]:
+        raise AssertionError(f"{tag}: steps {len(steps)}, cache depths {depths}, logged losses "
+                             f"{logged}")
+    if not all(os.path.exists(f) for f in files) or \
+            os.listdir(os.path.join(out, "checkpoints")) != ["7"]:
+        raise AssertionError(f"{tag}: an output is missing")
+    if not test["batches"] == 14 or not test["l1"] == test["l1"]:
+        raise AssertionError(f"{tag}: the test run {test}")
+    if fit_launches != want_fit or test_launches != want_test:
+        raise AssertionError(f"{tag}: launches differ from what the config implies")
+    return fit_launches
+
+
 def phase(name, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2390,8 +3117,8 @@ def main():
         frames_close(got, want, f"reconstruct, winograd_gn {view}")
     phase("8 serve from a reference", serve_from_reference, dev)
     phase("9 small train", check_small_train, dev)
-    (train1, ms1, peak1), (train2, _, _) = (phase("10 train stage 1", run_train, dev, 1),
-                                            phase("11 train stage 2", run_train, dev, 2))
+    (train1, ms1, peak1), (train2, ms2, _) = (phase("10 train stage 1", run_train, dev, 1),
+                                              phase("11 train stage 2", run_train, dev, 2))
     train_gn, ms_gn, peak_gn = phase("10b train stage 1, winograd_gn", run_train, dev, 1,
                                      conv="winograd_gn")
     print(f"[train stage 1, winograd_gn] {ms_gn:.1f} ms a micro-step, peak memory "
@@ -2400,6 +3127,9 @@ def main():
           flush=True)
     phase("12a small demo", check_small_demo, dev)
     phase("12 demo", full_demo, dev)
+    phase("13a small CLI", check_small_cli, dev)
+    phase("13 train CLI, stage 1", cli_train_stage1, dev, ms1)
+    phase("14 train CLI, stage 2", cli_train_stage2, dev, ms2)
 
     # each kernel's launches on its path: S and Q in the serving rollout
     # (phase 4), K1 and A in the reconstruction (phase 7), K2 and A-bwd in

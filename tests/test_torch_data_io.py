@@ -112,11 +112,36 @@ def test_factory_synthetic_matches_jax(split):
     assert loader.length == 3
 
 
-@pytest.mark.parametrize("kind", ["ThumanDataset", "IDOLDataset", "GaussianAudioDataset"])
+@pytest.mark.parametrize("kind", ["IDOLDataset"])
 def test_factory_refuses_unported_datasets(kind):
     cfg = ConfigLoader.load_config(PORT_TINY, [f"dataset.type={kind}"])
     with pytest.raises(NotImplementedError, match="item 6"):
         DatasetFactory.create_dataset(cfg, "val")
+
+
+@pytest.mark.parametrize("kind", ["ThumanDataset", "GaussianAudioDataset"])
+def test_factory_builds_the_ported_readers(kind, tmp_path):
+    """The two readers come from the factory; their B = 1 items are grouped
+    by training.batch_size on the train split."""
+    import warnings
+
+    from test_datasets import make_speech_fixture, make_thuman_fixture
+    root = str(tmp_path / "data")
+    if kind == "ThumanDataset":
+        make_thuman_fixture(root)
+        over = [f"dataset.dataset_root={root}", f"dataset.smplx_params_path={root}/smplx"]
+    else:
+        make_speech_fixture(root)
+        over = [f"dataset.root_dir={root}", "dataset.clip_length=4"]
+    cfg = ConfigLoader.load_config(PORT_TINY, [f"dataset.type={kind}", "training.batch_size=2",
+                                               "dataset.image_size=[32,32]", *over])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the untrained audio fallback
+        assert type(DatasetFactory.create_dataset(cfg, "val", "cpu")).__name__ == kind
+        loader = DatasetFactory.create_dataloader(cfg, "train", "cpu")
+    assert isinstance(loader, containers.CollatedBatches) and loader.batch_size == 2
+    ref, _, _ = next(iter(loader))
+    assert ref.video.shape[:1] == (2,) and ref.video.shape[-2:] == (32, 32)
 
 
 def test_factory_refuses_unknown_type_and_workers():

@@ -213,8 +213,8 @@ def _cli(*extra):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--mode", "train"], NotImplementedError, "item 3"),
-    (["--mode", "test"], NotImplementedError, "item 3"),
+    (["--mode", "train", "training.devices=2"], NotImplementedError, "item 7"),
+    (["--mode", "test", "--checkpoint", __file__], NotImplementedError, "item 4"),
     (["--mode", "demo", "--checkpoint", __file__], NotImplementedError, "item 4"),
     (["--mode", "demo", "training.multihost=true"], NotImplementedError, "item 7"),
 ])
@@ -254,7 +254,8 @@ def test_main2_prewarm_runs_one_rollout(tmp_path, capsys):
 def test_main_builder_and_output_dirs(tmp_path):
     """main.py's shared pieces: build_everything gives the stage-1 model on
     the config's body (400 synthetic vertices on the tiny profile), and
-    setup_output_dirs the run's directories; main.main raises (item 3)."""
+    setup_output_dirs the run's directories and config.yaml, which reads
+    back as the config."""
     from audio_motion_avatar_tpu_torch import main
     from audio_motion_avatar_tpu_torch.configs import ConfigLoader
     from audio_motion_avatar_tpu_torch.models.avatar import TriplaneGaussianAvatar
@@ -263,7 +264,7 @@ def test_main_builder_and_output_dirs(tmp_path):
     assert isinstance(model, TriplaneGaussianAvatar) and not model.training
     assert statics.smplx_model.v_template.shape == (400, 3) and ac.triplane_resolution == 8
     main.setup_output_dirs(cfg)
-    assert sorted(os.listdir(tmp_path)) == ["checkpoints", "target_images", "test_images",
-                                            "train_images"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        main.main(["--config", str(PORT_CONFIG)])
+    assert sorted(os.listdir(tmp_path)) == ["checkpoints", "config.yaml", "target_images",
+                                            "test_images", "train_images"]
+    from audio_motion_avatar_tpu_torch.configs import yaml_subset
+    assert yaml_subset.load(str(tmp_path / "config.yaml")) == cfg.to_dict()
