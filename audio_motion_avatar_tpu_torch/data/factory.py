@@ -1,21 +1,21 @@
 """Dataset factory (the JAX package's data/factory.py): the train split
 uses training.batch_size, the evaluation splits batch 1.
 
-`SyntheticDataset` batches itself; `ThumanDataset` and
-`GaussianAudioDataset` yield B = 1 items, which the loader groups by
-training.batch_size (containers.CollatedBatches, the trailing partial
-group dropped). `IDOLDataset` and the prefetch ring of `num_workers > 0`
-raise, naming the ROADMAP item that ports them.
+`SyntheticDataset` batches itself; `ThumanDataset`, `AvatarDataset`
+(IDOL) and `GaussianAudioDataset` yield B = 1 items, which the loader
+groups by training.batch_size (containers.CollatedBatches, the trailing
+partial group dropped). training.dataloader.num_workers > 0 reads the
+train split's items through the prefetch ring (data/prefetch.py), ahead
+of the steps and in the order they complete; the JAX package wraps the
+grouped batches instead, which its ring cannot index, so there the ring
+runs at batch size 1 only.
 """
 
 from __future__ import annotations
 
 from .containers import CollatedBatches
+from .prefetch import maybe_prefetch
 from .synthetic import SyntheticDataset
-
-# ROADMAP.md section 1 item 6: the data layer beyond these readers
-_DATA_ITEM = "ROADMAP.md section 1 item 6 (data)"
-_NOT_PORTED = ("IDOLDataset",)
 
 
 class DatasetFactory:
@@ -44,29 +44,26 @@ class DatasetFactory:
         if dtype == "ThumanDataset":
             from .thuman import ThumanDataset
             return ThumanDataset(cfg, split)
+        if dtype == "IDOLDataset":
+            from .idol import AvatarDataset
+            return AvatarDataset(cfg, split)
         if dtype == "GaussianAudioDataset":
             from .speech import GaussianAudioDataset
             return GaussianAudioDataset(cfg, split, device=device)
-        if dtype in _NOT_PORTED:
-            raise NotImplementedError(
-                f"dataset type {dtype!r} is not ported yet ({_DATA_ITEM}); "
-                "use ThumanDataset, GaussianAudioDataset or SyntheticDataset")
         raise ValueError(f"Unknown dataset type: {dtype}")
 
     @staticmethod
     def create_dataloader(cfg, split: str = "train", device="cpu"):
         """The dataset as an iterable of (ref, target, id) batches: a reader
-        of B = 1 items grouped by training.batch_size on the train split.
-        training.dataloader.num_workers > 0 (the JAX package's prefetch
-        ring) raises."""
+        of B = 1 items grouped by training.batch_size on the train split,
+        read through the prefetch ring when training.dataloader.num_workers
+        > 0 (train split only)."""
         ds = DatasetFactory.create_dataset(cfg, split, device)
         bs = int(cfg.training.batch_size) if split == "train" else 1
-        if bs > 1 and not isinstance(ds, SyntheticDataset):
-            ds = CollatedBatches(ds, bs)
         workers = int(cfg.training.get("dataloader", {}).get("num_workers", 0)) \
             if split == "train" else 0
-        if workers > 0:
-            raise NotImplementedError(
-                f"training.dataloader.num_workers={workers}: the prefetch ring is "
-                f"not ported yet ({_DATA_ITEM}); set it to 0")
+        batched = isinstance(ds, SyntheticDataset)      # it batches itself
+        ds = maybe_prefetch(ds, workers)
+        if bs > 1 and not batched:
+            ds = CollatedBatches(ds, bs)
         return ds

@@ -2,7 +2,7 @@
 package's main.py).
 
     python -m audio_motion_avatar_tpu_torch.main --config <yaml> \
-        --mode train|test|predict [--checkpoint DIR] [--resume] \
+        --mode train|test|predict [--checkpoint DIR|FILE] [--resume] \
         [--device cuda|cpu] [overrides a.b=c ...]
 
 train runs training/trainer.Trainer.fit over the dataset's train and val
@@ -12,9 +12,12 @@ it is empty) and write the comparison PNGs under test_images/. The merged
 config is written to <training.output_dir>/config.yaml. It runs on the
 card unless --device cpu is given (the kernels' plain versions); without a
 card, cuda raises. --checkpoint DIR restores a
-training/checkpoints.CheckpointManager directory; a reference .ckpt file
-(ROADMAP.md section 1 item 4) and multi-host or multi-device runs (item 7)
-are refused. `build_body` and `build_everything` are shared with main2.
+training/checkpoints.CheckpointManager directory; --checkpoint FILE imports
+a reference Lightning .ckpt (training/torch_import.py: every structurally
+identical module, non-strict; the upsampler norm defaults to 'affine' for
+its folded BatchNorms). Multi-host or multi-device runs (ROADMAP.md
+section 1 item 7) are refused. `build_body`, `build_everything` and
+`load_checkpoint` are shared with main2.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ from .models.config import AvatarConfig
 from .ops import smplx as smplx_ops
 
 from .training.trainer import PARALLEL_ITEM
-
-IMPORT_ITEM = "ROADMAP.md section 1 item 4 (training/torch_import.py)"
 
 
 def parse_args(argv=None):
@@ -71,11 +72,26 @@ def refuse_multihost(cfg) -> None:
             f"JAX_COORDINATOR_ADDRESS) is not ported yet: {PARALLEL_ITEM}")
 
 
-def refuse_checkpoint_file(path) -> None:
-    if path and not os.path.isdir(path):
-        raise NotImplementedError(
-            f"--checkpoint {path!r} is a file: importing a reference .ckpt is not "
-            f"ported yet ({IMPORT_ITEM}); a CheckpointManager directory restores")
+def load_checkpoint(path: str, state, ac: AvatarConfig, stage: int, tag: str):
+    """--checkpoint: a directory restores a CheckpointManager step into
+    `state`; a file is a reference torch / Lightning .ckpt, imported into
+    state.model (stage 1: the TriplaneGaussianAvatar tree, stage 2: the
+    AudioDrivenAvatar one). Prints what it did, as the JAX CLIs do; returns
+    the state."""
+    if os.path.isdir(path):
+        from .training.checkpoints import CheckpointManager
+        state, ok = CheckpointManager(path).restore(state)
+        print(f"[{tag}] checkpoint restore: {'ok' if ok else 'none found'}")
+        return state
+    from .training.torch_import import import_reference_checkpoint, merge_into
+    partial, report = import_reference_checkpoint(path, ac, stage=stage)
+    mismatches = merge_into(state.model, partial)
+    print(f"[{tag}] torch import: {report['loaded']} tensors from "
+          f"{report['total_torch_modules']} torch modules; "
+          f"skipped={sorted(report['skipped_modules'])[:8]}"
+          f"{'...' if len(report['skipped_modules']) > 8 else ''}; "
+          f"mismatches={mismatches[:8]}")
+    return state
 
 
 def build_body(cfg, ac: AvatarConfig) -> smplx_ops.SmplxModel:
@@ -133,7 +149,6 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = ConfigLoader.load_config(args.config, args.overrides)
     refuse_multihost(cfg)
-    refuse_checkpoint_file(args.checkpoint)
     cfg = default_affine_norm_for_import(cfg, args.checkpoint)
     refuse_parallel(cfg)
     device = resolve_device(args.device)
@@ -151,9 +166,7 @@ def main(argv=None):
                       stage1.make_eval_step(model, statics, ac),
                       render_fn=stage1.make_render_fn(model, statics), device=device)
     if args.checkpoint:
-        from .training.checkpoints import CheckpointManager
-        state, ok = CheckpointManager(args.checkpoint).restore(state)
-        print(f"[main] checkpoint restore: {'ok' if ok else 'none found'}")
+        state = load_checkpoint(args.checkpoint, state, ac, 1, "main")
 
     metrics = None
     if args.mode == "train":

@@ -2,7 +2,7 @@
 package's main2.py).
 
     python -m audio_motion_avatar_tpu_torch.main2 --config <yaml> \
-        --mode train|test|demo [--checkpoint DIR] [--resume] [--audio x.wav] \
+        --mode train|test|demo [--checkpoint DIR|FILE] [--resume] [--audio x.wav] \
         [--output x.mp4] [--prewarm] [--device cuda|cpu] [overrides a.b=c ...]
 
 Train: the dataset's train split through training/stage2.Stage2TrainLoop
@@ -30,9 +30,10 @@ It runs on the card unless --device cpu is given (the kernels' plain
 versions); without a card, cuda raises. On the card, 64-wide heads need
 the override model.compute_dtype=bfloat16 (kernel A takes bf16).
 --checkpoint DIR restores a training/checkpoints.CheckpointManager
-directory. Not ported yet, and refused: a reference .ckpt file
-(ROADMAP.md section 1 item 4), multi-host runs and training.devices or
-training.model_parallel above 1 (item 7).
+directory; --checkpoint FILE imports the released full reference .ckpt
+(`triplane_gaussian.*` and `audio_triplane.*`, training/torch_import.py).
+Not ported yet, and refused: multi-host runs and training.devices or
+training.model_parallel above 1 (ROADMAP.md section 1 item 7).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .main import build_body, refuse_checkpoint_file, refuse_multihost
+from .main import build_body, load_checkpoint, refuse_multihost
 
 
 def parse_args(argv=None):
@@ -423,7 +424,6 @@ def main(argv=None):
 
     cfg = ConfigLoader.load_config(args.config, args.overrides)
     refuse_multihost(cfg)
-    refuse_checkpoint_file(args.checkpoint)
     if args.mode == "train":
         from .training.trainer import refuse_parallel
         refuse_parallel(cfg)
@@ -440,9 +440,7 @@ def main(argv=None):
     rollout = build_stage2(cfg, ac, device)
     state = init_state2(rollout.model, cfg)
     if args.checkpoint:
-        from .training.checkpoints import CheckpointManager
-        state, ok = CheckpointManager(args.checkpoint).restore(state)
-        print(f"[main2] checkpoint restore: {'ok' if ok else 'none found'}")
+        state = load_checkpoint(args.checkpoint, state, ac, 2, "main2")
     if args.mode == "train":
         return run_train(cfg, rollout, state, resume=args.resume)
     if args.mode == "test":

@@ -71,13 +71,26 @@ def pool_local_max(values: torch.Tensor, cell_index: torch.Tensor,
 def scatter_mean_plane(values: torch.Tensor, cell_index: torch.Tensor,
                        resolution: int) -> torch.Tensor:
     """Mean of the point features in each cell: values (B, N, C),
-    cell_index (B, N) -> (B, C, R, R); empty cells are 0."""
+    cell_index (B, N) -> (B, C, R, R); empty cells are 0.
+
+    Each cell's sum runs in point order, in the values' dtype: the cell ids
+    sorted stably, then one sequential reduction a segment. That is the
+    order of the JAX package's segment_sum on the CPU, and the same on
+    every run and device (an atomic scatter-add of floats sums in whatever
+    order its threads arrive). The points a cell are counted in integers
+    (exact in any order, and without a host sync), then capped as the JAX
+    package's sum of ones in the values' dtype is: a sequential float sum
+    of ones stops at 2 / eps (256 in bf16)."""
     B, N, C = values.shape
     size = resolution * resolution
-    s = values.new_zeros(B, size, C).scatter_add_(
-        1, cell_index[..., None].expand(B, N, C), values)
-    cnt = values.new_zeros(B, size, 1).scatter_add_(
-        1, cell_index[..., None], values.new_ones(B, N, 1))
+    key = (cell_index + size * torch.arange(B, device=values.device)[:, None]).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    lengths = torch.zeros(B * size, dtype=torch.long, device=values.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    s = torch.segment_reduce(values.reshape(B * N, C)[order], "sum", lengths=lengths,
+                             unsafe=True)
+    cap = int(2 / torch.finfo(values.dtype).eps)
+    cnt = lengths.clamp(max=cap).to(values.dtype)[:, None]
     mean = s / torch.clamp(cnt, min=1.0)
     return mean.reshape(B, resolution, resolution, C).permute(0, 3, 1, 2)
 

@@ -144,8 +144,22 @@ class CheckpointManager:
 
 def load_torch_state_dict(path: str) -> dict:
     """A Lightning .ckpt / torch .pt state dict as numpy arrays (read with
-    weights_only=True: tensors and plain containers only)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    weights_only=True: tensors and plain containers only; the JAX package
+    reads with weights_only=False, so a file that pickles other objects
+    loads there and raises here, saying what it could not read; a file
+    that cannot be opened raises its OSError)."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except OSError:
+        raise
+    except Exception as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        said = [ln for ln in lines if "Unsupported" in ln] or lines[:1]
+        raise ValueError(f"{path!r} is not a torch checkpoint that torch.load reads with "
+                         f"weights_only=True (tensors and plain containers): "
+                         f"{type(e).__name__}: {' '.join(said)}") from e
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"{path!r} holds a {type(ckpt).__name__}, not a state dict")
     sd = ckpt.get("state_dict", ckpt)
     return {k: v.detach().numpy() if hasattr(v, "detach") else np.asarray(v)
             for k, v in sd.items()}

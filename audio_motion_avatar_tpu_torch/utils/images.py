@@ -15,13 +15,16 @@ same pixels itself:
   the image's anti-diagonals (pixel (r, x) needs (r, x - 1), (r - 1, x) and
   (r - 1, x - 1), all on earlier diagonals), each diagonal one vector step
   over its pixels and their bytes.
-- `convert`: Pillow's "RGB" and "L" conversions (L is ITU-R 601-2 luma in
-  Pillow's fixed point, (R 19595 + G 38470 + B 7471 + 0x8000) >> 16; a
-  palette image converts through its palette; alpha is dropped).
+- `convert`: Pillow's "RGB", "L" and "RGBA" conversions (L is ITU-R 601-2
+  luma in Pillow's fixed point, (R 19595 + G 38470 + B 7471 + 0x8000) >>
+  16; a palette image converts through its palette, to RGBA with the
+  alphas of its tRNS chunk (255 past them); grey + alpha to RGBA repeats
+  the grey; RGB and L drop alpha, RGBA from RGB or L is opaque).
 - `resize`: `Image.resize((W, H))` with its default filter, bicubic
-  (a = -0.5), as Pillow's libImaging/Resample.c computes it: the support
-  widened by the downscale factor, the coefficients normalised and fixed to
-  22 fractional bits (rounded away from zero), a horizontal pass clipped to
+  (a = -0.5), or with `Image.BILINEAR` (the triangle filter, support 1),
+  as Pillow's libImaging/Resample.c computes them: the support widened by
+  the downscale factor, the coefficients normalised and fixed to 22
+  fractional bits (rounded away from zero), a horizontal pass clipped to
   uint8 and then a vertical one; a same-size resize is a copy. The passes
   sum in int32, as the C code does.
 - `encode_png`: grey (H, W) or RGB (H, W, 3) uint8, every row with one
@@ -47,6 +50,7 @@ class PngImage(NamedTuple):
     pixels: np.ndarray                  # (H, W) for L and P, else (H, W, C) uint8
     mode: str                           # "L", "LA", "RGB", "RGBA" or "P"
     palette: Optional[np.ndarray] = None    # (N, 3) uint8 for mode P
+    alpha: Optional[np.ndarray] = None      # mode P: the tRNS alphas, (M,) uint8
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +115,7 @@ def decode_png(data: bytes) -> PngImage:
     and palette images)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG")
-    pos, idat, header, palette = 8, [], None, None
+    pos, idat, header, palette, trns = 8, [], None, None, None
     while pos < len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
@@ -123,6 +127,8 @@ def decode_png(data: bytes) -> PngImage:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -142,13 +148,14 @@ def decode_png(data: bytes) -> PngImage:
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = rows[:h * (1 + width * bpp)].reshape(h, 1 + width * bpp)
     pixels = _unfilter(rows[:, 1:].reshape(h, width, bpp), rows[:, 0], bpp)
+    alpha = trns if mode == "P" else None
     if packed:
         pixels = _unpack(pixels[..., 0], depth, w)
         if mode == "L":
             pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
-        return PngImage(pixels, mode, palette if mode == "P" else None)
+        return PngImage(pixels, mode, palette if mode == "P" else None, alpha)
     return PngImage(pixels[..., 0] if bpp == 1 else pixels, mode,
-                    palette if mode == "P" else None)
+                    palette if mode == "P" else None, alpha)
 
 
 def _luma(rgb: np.ndarray) -> np.ndarray:
@@ -159,9 +166,20 @@ def _luma(rgb: np.ndarray) -> np.ndarray:
 
 
 def convert(img: PngImage, mode: str) -> np.ndarray:
-    """Pillow's Image.convert(mode) for mode "RGB" -> (H, W, 3) or "L" ->
-    (H, W) uint8."""
+    """Pillow's Image.convert(mode) for mode "RGB" -> (H, W, 3), "L" ->
+    (H, W) or "RGBA" -> (H, W, 4) uint8."""
     px = img.pixels
+    if mode == "RGBA":
+        if img.mode == "RGBA":
+            return px.copy()
+        if img.mode == "LA":
+            return np.concatenate([np.repeat(px[..., :1], 3, axis=-1), px[..., 1:]], -1)
+        alpha = np.full(px.shape[:2], 255, np.uint8)
+        if img.mode == "P" and img.alpha is not None:
+            table = np.full(256, 255, np.uint8)
+            table[:len(img.alpha)] = img.alpha[:256]
+            alpha = table[px]
+        return np.concatenate([convert(img, "RGB"), alpha[..., None]], -1)
     if img.mode == "P":
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(img.palette)] = img.palette[:256]
@@ -177,7 +195,7 @@ def convert(img: PngImage, mode: str) -> np.ndarray:
         return np.ascontiguousarray(rgb)
     if mode == "L":
         return _luma(rgb)
-    raise ValueError(f"convert: mode {mode!r} (RGB or L)")
+    raise ValueError(f"convert: mode {mode!r} (RGB, L or RGBA)")
 
 
 def read_png(path: str, mode: str = "RGB") -> np.ndarray:
@@ -237,19 +255,30 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Resample.c's precompute_coeffs + normalize_coeffs_8bpc for the
-    bicubic filter over the whole axis: (first input index (out,), fixed
-    point weights (out, ksize) int64, zero past each window)."""
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# Resample.c's filters: (function, support)
+FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int,
+                  resample: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
+    """Resample.c's precompute_coeffs + normalize_coeffs_8bpc for a filter
+    over the whole axis: (first input index (out,), fixed point weights
+    (out, ksize) int64, zero past each window)."""
+    fn, base = FILTERS[resample]
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
     xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
     j = np.arange(ksize)
-    w = _bicubic(((j[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = fn(((j[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(j[None] < xmax[:, None], w, 0.0)
     total = np.zeros(out_size)
     for i in range(ksize):      # summed in order, as the C loop does
@@ -260,11 +289,11 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return xmin, fixed
 
 
-def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _pass(img: np.ndarray, axis: int, out_size: int, resample: str) -> np.ndarray:
     """One 8-bit resampling pass along `axis` of a uint8 array, in int32 as
     Resample.c sums (|sum| < 255 * 1.3 * 2^22 < 2^31)."""
     n = img.shape[axis]
-    first, k = _coefficients(n, out_size)
+    first, k = _coefficients(n, out_size, resample)
     src = np.ascontiguousarray(np.moveaxis(img, axis, 0))
     k = k.astype(np.int32)
     acc = np.full((out_size,) + src.shape[1:], 1 << (PRECISION_BITS - 1), np.int32)
@@ -275,9 +304,12 @@ def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Pillow's Image.resize(size) (size = (W, H), bicubic) of an (H, W) or
-    (H, W, C) uint8 image."""
+def resize(img: np.ndarray, size: Tuple[int, int], resample: str = "bicubic") -> np.ndarray:
+    """Pillow's Image.resize(size, resample) (size = (W, H); resample
+    "bicubic", Pillow's default, or "bilinear") of an (H, W) or (H, W, C)
+    uint8 image."""
+    if resample not in FILTERS:
+        raise ValueError(f"resize: resample {resample!r} ({', '.join(FILTERS)})")
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"resize takes uint8 images, got {img.dtype}")
@@ -285,7 +317,7 @@ def resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     h, w = img.shape[:2]
     out = img
     if w_out != w:
-        out = _pass(out, 1, w_out)
+        out = _pass(out, 1, w_out, resample)
     if h_out != h:
-        out = _pass(out, 0, h_out)
+        out = _pass(out, 0, h_out, resample)
     return out.copy() if out is img else out

@@ -97,28 +97,31 @@ def convert_subtree(tree: dict) -> Dict[str, torch.Tensor]:
     return dict(_entry("", path, a) for path, a in _leaves(tree))
 
 
-def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
-    """flax param tree (nested dicts of numpy arrays, with or without the
-    top-level "params" key) of an AudioDrivenAvatar or a
-    TriplaneGaussianAvatar -> the port's state_dict of the same model (fp32).
-    A tree that holds only some subtrees (e.g. a serving rollout's) maps to
-    the matching part of the model."""
+def flax_entries(tree: dict) -> Iterator[Tuple[tuple, str, torch.Tensor]]:
+    """(flax path, state_dict key, fp32 tensor) for every leaf of a flax
+    param tree, as params_from_flax maps it."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     stage2 = "triplane_gaussian" in tree or "audio_triplane" in tree
     roots = STAGE2_ROOTS if stage2 else STAGE1_ROOTS
     refiner = ("triplane_gaussian.renderer.point_refiner" if stage2
                else "renderer.point_refiner")
-    out: Dict[str, torch.Tensor] = {}
     for path, a in _leaves(tree):
         if path[0] not in roots:
             raise KeyError(f"params_from_flax: unknown subtree {'/'.join(path)}")
         if path[0] == "point_refiner":
-            key, val = _entry(refiner, path[1:], a)
+            yield (path,) + _entry(refiner, path[1:], a)
         else:
-            key, val = _entry("", path, a)
-        out[key] = val
-    return out
+            yield (path,) + _entry("", path, a)
+
+
+def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """flax param tree (nested dicts of numpy arrays, with or without the
+    top-level "params" key) of an AudioDrivenAvatar or a
+    TriplaneGaussianAvatar -> the port's state_dict of the same model (fp32).
+    A tree that holds only some subtrees (e.g. a serving rollout's) maps to
+    the matching part of the model."""
+    return {key: val for _, key, val in flax_entries(tree)}
 
 
 @torch.no_grad()

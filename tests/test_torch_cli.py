@@ -18,8 +18,11 @@ write.
   writes what tests/test_stage2_observability.py asks of the JAX run (event
   files, audio_comparison_<step>_iter<depth>.png, ref_comparison_<step>.png);
   test writes predict_results/audio_comparison_<n>.png and the mean L1.
-- Without --device cpu, every mode asks for the card and raises here; a
-  checkpoint file (item 4) and parallel or multi-host runs (item 7) raise.
+- --checkpoint FILE imports a reference Lightning .ckpt into main's
+  stage-1 model (test mode evaluates the imported heads) and main2's
+  stage-2 model; a file that is no checkpoint raises clearly.
+- Without --device cpu, every mode asks for the card and raises here;
+  parallel or multi-host runs (item 7) raise.
 """
 
 import os
@@ -194,13 +197,81 @@ def test_cli_defaults_to_the_card(cli, mode, tmp_path):
         cli.main(["--config", TINY, "--mode", mode, f"training.output_dir={tmp_path}"])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--checkpoint", __file__], "item 4"),
-    (["training.devices=2"], "item 7"),
-    (["training.model_parallel=2"], "item 7"),
-    (["training.multihost=true"], "item 7"),
-])
-def test_main_refusals_name_the_roadmap_item(extra, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--checkpoint", __file__], ValueError, "not a torch checkpoint"),
+    (["training.devices=2"], NotImplementedError, "item 7"),
+    (["training.model_parallel=2"], NotImplementedError, "item 7"),
+    (["training.multihost=true"], NotImplementedError, "item 7"),
+    (["--checkpoint", "no_such_checkpoint.ckpt"], FileNotFoundError, "no_such_checkpoint"),
+], ids=["extra0-not a torch checkpoint", "extra1-item 7", "extra2-item 7", "extra3-item 7",
+        "extra4-missing file"])
+def test_main_refusals_name_the_roadmap_item(extra, error, match, tmp_path):
+    with pytest.raises(error, match=match):
         main.main(["--device", "cpu", "--config", TINY, "--mode", "train",
                    f"training.output_dir={tmp_path}", *extra])
+
+
+def _reference_heads(model, prefix, path, scale=1.5):
+    """A Lightning .ckpt holding `model`'s five gaussian heads under the
+    reference's names (renderer.gaussian_decoder.*), scaled, with larger
+    gaussians of higher opacity (visible in the frames)."""
+    sd = model.state_dict()
+    lift = {"opacity_layer.bias": 4.0, "scaling_layer.bias": 2.0}
+    ref = {f"{prefix}renderer.gaussian_decoder.{name}.{leaf}":
+           scale * sd[f"{prefix}renderer.{name}.{leaf}"] + lift.get(f"{name}.{leaf}", 0.05)
+           for name in ("xyz_layer", "rotation_layer", "scaling_layer", "opacity_layer",
+                        "shs_layer") for leaf in ("weight", "bias")}
+    torch.save({"epoch": 1, "global_step": 10, "hyper_parameters": {"lr": 1e-4},
+                "state_dict": ref}, path)
+
+
+def test_main_test_imports_a_reference_checkpoint(thuman, tmp_path, capsys):
+    """main --mode test --checkpoint FILE evaluates the imported weights:
+    the stage-1 import (no triplane_gaussian nesting: main imports stage 1)
+    of the five heads, reported as the JAX CLI prints it."""
+    from audio_motion_avatar_tpu_torch.configs.loader import ConfigLoader as Loader
+    out = tmp_path / "imported"
+    run = _stage1(thuman, out)
+    model, _, _ = main.build_everything(Loader.load_config(TINY, run[4:]), "cpu")
+    path = str(tmp_path / "reference.ckpt")
+    _reference_heads(model, "", path)
+    with open(path, "rb") as f:
+        payload = torch.load(f, weights_only=True)
+    payload["state_dict"] = {f"triplane_gaussian.{k}": v for k, v in payload["state_dict"].items()}
+    torch.save(payload, path)
+    fresh = main.main(["--mode", "test", *run])
+    capsys.readouterr()
+    metrics = main.main(["--mode", "test", "--checkpoint", path, *run])
+    log = capsys.readouterr().out
+    assert "[main] torch import: 5 tensors from 5 torch modules; skipped=[]; mismatches=[]" in log
+    assert np.isfinite(metrics["loss"]) and metrics["loss"] != fresh["loss"]
+
+
+def test_main2_test_imports_a_reference_checkpoint(ted, tmp_path, capsys, monkeypatch):
+    """main2 --mode test --checkpoint FILE: the stage-2 import (the heads
+    under triplane_gaussian.*) lands in the model the test runs."""
+    from audio_motion_avatar_tpu_torch.configs.build import build_avatar_config
+    from audio_motion_avatar_tpu_torch.configs.loader import ConfigLoader as Loader
+    out = tmp_path / "imported"
+    run = _stage2(ted, out)
+    cfg = Loader.load_config(TINY, run[4:])
+    model = main2.build_stage2(cfg, build_avatar_config(cfg), torch.device("cpu")).model
+    path = str(tmp_path / "reference.ckpt")
+    _reference_heads(model, "triplane_gaussian.", path)
+    seen = {}
+
+    def spy(path, state, ac, stage, tag):
+        seen.update(model=state.model, stage=stage)
+        return real(path, state, ac, stage, tag)
+
+    real = main2.load_checkpoint
+    monkeypatch.setattr(main2, "load_checkpoint", spy)
+    with pytest.warns(UserWarning, match="UNTRAINED"):
+        got = main2.main(["--mode", "test", "--checkpoint", path, *run])
+    log = capsys.readouterr().out
+    assert "[main2] torch import: 5 tensors from 5 torch modules; skipped=[]; mismatches=[]" in log
+    assert seen["stage"] == 2 and got["batches"] == 2 and np.isfinite(got["l1"])
+    want = torch.load(path, weights_only=True)["state_dict"]
+    sd = seen["model"].state_dict()
+    for k, v in want.items():
+        assert torch.equal(sd[k.replace("gaussian_decoder.", "")], v), k

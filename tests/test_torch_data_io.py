@@ -114,43 +114,77 @@ def test_factory_synthetic_matches_jax(split):
 
 @pytest.mark.parametrize("kind", ["IDOLDataset"])
 def test_factory_refuses_unported_datasets(kind):
-    cfg = ConfigLoader.load_config(PORT_TINY, [f"dataset.type={kind}"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DatasetFactory.create_dataset(cfg, "val")
+    """IDOL is ported (tests/test_torch_idol.py); without a scene cache it
+    refuses as the JAX reader does."""
+    over = [f"dataset.type={kind}"]
+    with pytest.raises(FileNotFoundError, match="No IDOL cache entries"):
+        JaxFactory.create_dataset(JaxLoader.load_config(JAX_TINY, over), "val")
+    with pytest.raises(FileNotFoundError, match="No IDOL cache entries"):
+        DatasetFactory.create_dataset(ConfigLoader.load_config(PORT_TINY, over), "val")
 
 
-@pytest.mark.parametrize("kind", ["ThumanDataset", "GaussianAudioDataset"])
+@pytest.mark.parametrize("kind", ["ThumanDataset", "GaussianAudioDataset", "IDOLDataset"])
 def test_factory_builds_the_ported_readers(kind, tmp_path):
-    """The two readers come from the factory; their B = 1 items are grouped
-    by training.batch_size on the train split."""
+    """The three readers come from the factory; their B = 1 items are
+    grouped by training.batch_size on the train split."""
     import warnings
 
-    from test_datasets import make_speech_fixture, make_thuman_fixture
+    from test_datasets import make_idol_fixture, make_speech_fixture, make_thuman_fixture
     root = str(tmp_path / "data")
     if kind == "ThumanDataset":
         make_thuman_fixture(root)
         over = [f"dataset.dataset_root={root}", f"dataset.smplx_params_path={root}/smplx"]
+    elif kind == "IDOLDataset":
+        cache = make_idol_fixture(tmp_path)
+        over = [f"dataset.cache_path_train=[{cache}]", f"dataset.cache_path_val=[{cache}]",
+                "dataset.specific_observation_num=4"]
     else:
         make_speech_fixture(root)
         over = [f"dataset.root_dir={root}", "dataset.clip_length=4"]
     cfg = ConfigLoader.load_config(PORT_TINY, [f"dataset.type={kind}", "training.batch_size=2",
                                                "dataset.image_size=[32,32]", *over])
+    want = "AvatarDataset" if kind == "IDOLDataset" else kind
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # the untrained audio fallback
-        assert type(DatasetFactory.create_dataset(cfg, "val", "cpu")).__name__ == kind
+        assert type(DatasetFactory.create_dataset(cfg, "val", "cpu")).__name__ == want
         loader = DatasetFactory.create_dataloader(cfg, "train", "cpu")
     assert isinstance(loader, containers.CollatedBatches) and loader.batch_size == 2
     ref, _, _ = next(iter(loader))
     assert ref.video.shape[:1] == (2,) and ref.video.shape[-2:] == (32, 32)
 
 
-def test_factory_refuses_unknown_type_and_workers():
+def test_factory_refuses_unknown_type_and_workers(tmp_path):
+    """An unknown type raises. num_workers > 0 (ported: data/prefetch.py)
+    reads the train split through the native ring, every item once (at
+    batch size 2 the ring's items are grouped after it); the evaluation
+    splits stay unprefetched."""
+    from audio_motion_avatar_tpu_torch.data.prefetch import NativePrefetcher
+    from test_datasets import make_thuman_fixture
     with pytest.raises(ValueError, match="Unknown dataset type"):
         DatasetFactory.create_dataset(ConfigLoader.load_config(PORT_TINY, ["dataset.type=X"]))
     cfg = ConfigLoader.load_config(PORT_TINY, ["training.dataloader.num_workers=2"])
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        DatasetFactory.create_dataloader(cfg, "train")
+    loader = DatasetFactory.create_dataloader(cfg, "train")
+    assert isinstance(loader, NativePrefetcher) and loader.ring == "native"
+    assert len(list(loader)) == len(loader) == 8
     assert len(DatasetFactory.create_dataloader(cfg, "val")) == 8
+    root = str(tmp_path / "thuman")
+    make_thuman_fixture(root)
+    cfg = ConfigLoader.load_config(PORT_TINY, [
+        "dataset.type=ThumanDataset", f"dataset.dataset_root={root}",
+        f"dataset.smplx_params_path={root}/smplx", "dataset.image_size=[32,32]",
+        "training.batch_size=2", "training.dataloader.num_workers=2"])
+    loader = DatasetFactory.create_dataloader(cfg, "train")
+    assert isinstance(loader, containers.CollatedBatches)
+    assert isinstance(loader.dataset, NativePrefetcher)
+    seen = []
+    real = loader.dataset.dataset.__class__.__getitem__
+    loader.dataset.dataset.__class__.__getitem__ = lambda self, i: seen.append(i) or real(self, i)
+    try:
+        batches = list(loader)
+    finally:
+        loader.dataset.dataset.__class__.__getitem__ = real
+    assert len(batches) == 1 and batches[0][0].video.shape[0] == 2
+    assert sorted(seen) == [0, 1]
 
 
 def _release(num_verts=30, shape_components=400):

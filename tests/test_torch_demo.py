@@ -214,8 +214,8 @@ def _cli(*extra):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--mode", "train", "training.devices=2"], NotImplementedError, "item 7"),
-    (["--mode", "test", "--checkpoint", __file__], NotImplementedError, "item 4"),
-    (["--mode", "demo", "--checkpoint", __file__], NotImplementedError, "item 4"),
+    (["--mode", "test", "--checkpoint", __file__], ValueError, "not a torch checkpoint"),
+    (["--mode", "demo", "--checkpoint", __file__], ValueError, "not a torch checkpoint"),
     (["--mode", "demo", "training.multihost=true"], NotImplementedError, "item 7"),
 ])
 def test_main2_refusals_name_the_roadmap_item(argv, error, match):
@@ -249,6 +249,39 @@ def test_main2_prewarm_runs_one_rollout(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "first rollout" in out and "--prewarm" in out and "wrote" not in out
     assert not (tmp_path / "demo_outputs" / "frames").exists()
+
+
+def test_main2_demo_imports_a_reference_checkpoint(tmp_path, capsys):
+    """--checkpoint FILE: a Lightning .ckpt with the reference's names (the
+    five gaussian heads and the audio transformer's output projection, at
+    the tiny model's shapes) is imported into the stage-2 model before the
+    demo's first rollout; the upsampler norm defaults to 'affine'."""
+    from audio_motion_avatar_tpu_torch import main2
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import (build_avatar_config,
+                                                             default_affine_norm_for_import)
+    cfg = ConfigLoader.load_config(str(PORT_CONFIG), ["dataset.image_size=[32,32]"])
+    model = main2.build_stage2(cfg, build_avatar_config(cfg), torch.device("cpu")).model
+    sd = model.state_dict()
+    g = torch.Generator().manual_seed(0)
+    ref = {}
+    for name in ("xyz_layer", "rotation_layer", "scaling_layer", "opacity_layer", "shs_layer"):
+        for leaf in ("weight", "bias"):
+            v = sd[f"triplane_gaussian.renderer.{name}.{leaf}"]
+            ref[f"triplane_gaussian.renderer.gaussian_decoder.{name}.{leaf}"] = \
+                v + 1e-2 * torch.randn(v.shape, generator=g)
+    for leaf in ("weight", "bias"):
+        ref[f"audio_triplane.transformer.proj_out.{leaf}"] = \
+            0.1 * sd[f"audio_triplane.transformer.proj_out.{leaf}"]
+    path = str(tmp_path / "reference.ckpt")
+    torch.save({"epoch": 0, "global_step": 0, "hyper_parameters": {}, "state_dict": ref}, path)
+    assert main2.main(_cli("--mode", "demo", "--prewarm", "--checkpoint", path,
+                           f"training.output_dir={tmp_path}", "dataset.image_size=[32,32]")) is None
+    out = capsys.readouterr().out
+    assert "[main2] torch import: 6 tensors from 6 torch modules; skipped=[]; mismatches=[]" in out
+    assert "first rollout" in out
+    affine = default_affine_norm_for_import(cfg, path)
+    assert affine["model"]["renderer"]["upsampler_norm"] == "affine"
 
 
 def test_main_builder_and_output_dirs(tmp_path):

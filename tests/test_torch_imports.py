@@ -47,7 +47,7 @@ CHILD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for new in ("main", "main2", "training.trainer", "data.thuman", "data.speech",
-                "utils.images"):
+                "utils.images", "training.torch_import", "data.idol", "data.prefetch"):
         assert "audio_motion_avatar_tpu_torch." + new in names, names
 
     from audio_motion_avatar_tpu_torch.configs import ConfigLoader

@@ -108,3 +108,22 @@ def test_quad_wrapper_refuses_other_devices():
         ttp.quad_rows(torch.zeros(1, 2, 4, 4, 8, device="meta"),
                       torch.zeros(1, 4, dtype=torch.long, device="meta"), 2)
     assert ttp.quad_rows.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_scatter_mean_is_the_jax_segment_mean_bit_for_bit(dtype):
+    """The segment mean sums each cell in point order, as the JAX package's
+    segment_sum does on the CPU: the same bits in float32, bfloat16 and
+    float16, where a cell of more than 256 points saturates the bfloat16
+    count in both."""
+    rng = np.random.RandomState(5)
+    B, N, C, R = 2, 3000, 8, 8
+    v = rng.randn(B, N, C).astype(np.float32)
+    idx = rng.randint(0, R * R, (B, N))
+    idx[:, :600] = 3                 # one crowded cell
+    idx[:, 600:700] = R * R - 1
+    want = jtp.scatter_mean_plane(jnp.asarray(v, dtype), jnp.asarray(idx, jnp.int32), R)
+    got = ttp.scatter_mean_plane(torch.as_tensor(v).to(getattr(torch, dtype)),
+                                 torch.as_tensor(idx, dtype=torch.long), R)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
