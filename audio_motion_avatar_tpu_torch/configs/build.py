@@ -1,13 +1,10 @@
 """Config tree -> static model / optimizer configs (the JAX package's
 configs/build.py).
 
-The port's AvatarConfig leaves out the JAX package's execution knobs
-(models/config.py). A YAML or CLI value for one of them is handled here by
-what its value would select:
-- IGNORED_KNOBS: every value computes the same function in the port, so
-  the knob is accepted and dropped;
-- REFUSED_KNOBS: a value other than the default selects a path the port
-  does not implement, so it raises, naming the knob.
+The port's AvatarConfig leaves out the JAX package's execution knobs whose
+every value computes the same function in the port (models/config.py): a
+YAML or CLI value for one of them (IGNORED_KNOBS) is accepted and dropped.
+Every other knob is a field and is read.
 """
 
 from __future__ import annotations
@@ -21,14 +18,9 @@ from .loader import Config
 
 # JAX execution knobs whose every value computes the same function here:
 # the frame scan's unroll factor, the quad-row builder ('xla' | 'pallas':
-# kernel Q is that function), the splat composite's implementation
-# ('pallas' | 'tiles' | 'naive': the tile composite, K1 on the card) and
-# the sparse penultimate level's tile cap (read only with that level,
-# which is refused below).
-IGNORED_KNOBS = ("frames_scan_unroll", "quad_builder", "splat_mode",
-                 "upsampler_sparse_pen_max_tiles")
-# JAX knobs the port does not implement -> the only value it accepts.
-REFUSED_KNOBS = {"sample_slab": False, "upsampler_sparse_penultimate": False}
+# kernel Q is that function) and the splat composite's implementation
+# ('pallas' | 'tiles' | 'naive': the tile composite, K1 on the card).
+IGNORED_KNOBS = ("frames_scan_unroll", "quad_builder", "splat_mode")
 
 # The JAX serving overlay's key beyond the port's serving_config (its
 # other two, frames_scan_unroll and quad_builder, are IGNORED_KNOBS): the
@@ -37,16 +29,8 @@ SERVING_PROFILE_EXEC = {"frames_scan_remat": False}
 
 
 def _replace(ac: AvatarConfig, over: dict) -> AvatarConfig:
-    """ac with the port's fields of `over` set; the ignored knobs dropped,
-    the refused ones raising unless they hold their only accepted value."""
+    """ac with the port's fields of `over` set; the ignored knobs dropped."""
     fields = {f.name for f in dataclasses.fields(AvatarConfig)}
-    bad = {k: v for k, v in over.items()
-           if k in REFUSED_KNOBS and v != REFUSED_KNOBS[k]}
-    if bad:
-        raise ValueError(
-            f"the port does not implement {', '.join(f'{k}={v!r}' for k, v in bad.items())} "
-            f"(a JAX execution knob; only {', '.join(f'{k}={REFUSED_KNOBS[k]!r}' for k in bad)} "
-            "is accepted)")
     keep = {k: v for k, v in over.items() if k in fields}
     return dataclasses.replace(ac, **keep) if keep else ac
 
@@ -56,8 +40,7 @@ def _model_level_overrides(ac: AvatarConfig, cfg: Config) -> AvatarConfig:
     AvatarConfig fields (of the JAX package's, e.g. `model.demo_fuse_chunks=2`,
     `model.compute_dtype=bfloat16` from the CLI)."""
     m = cfg.get("model") or {}
-    names = ({f.name for f in dataclasses.fields(AvatarConfig)}
-             | set(IGNORED_KNOBS) | set(REFUSED_KNOBS))
+    names = {f.name for f in dataclasses.fields(AvatarConfig)} | set(IGNORED_KNOBS)
     over = {k: v for k, v in dict(m).items()
             if k in names and not isinstance(v, dict)}
     return _replace(ac, over)
@@ -124,9 +107,12 @@ def build_avatar_config(cfg: Config) -> AvatarConfig:
         upsampler_sparse=rd.get("upsampler_sparse", False),
         upsampler_sparse_max_tiles=rd.get("upsampler_sparse_max_tiles", 384),
         upsampler_sparse_tile_px=rd.get("upsampler_sparse_tile_px", 16),
+        upsampler_sparse_penultimate=rd.get("upsampler_sparse_penultimate", False),
+        upsampler_sparse_pen_max_tiles=rd.get("upsampler_sparse_pen_max_tiles", 128),
         upsampler_upconv=rd.get("upsampler_upconv", "poly"),
         upsampler_conv=rd.get("upsampler_conv", "xla"),
         upsampler_norm=rd.get("upsampler_norm", "group"),
+        sample_slab=rd.get("sample_slab", False),
         sample_quad=rd.get("sample_quad", False),
         splat_segmented=rd.get("splat_segmented", False),
         splat_max_window=rd.get("splat_max_window", 4),
@@ -159,10 +145,6 @@ def build_avatar_config(cfg: Config) -> AvatarConfig:
         ptv3_grid_resolution=m.ptv3_encoder.grid_resolution,
         ptv3_output_dim=m.ptv3_encoder.output_dim,
     )
-    # the execution knobs the JAX build reads from model.renderer
-    execution = ("upsampler_sparse_penultimate", "upsampler_sparse_pen_max_tiles",
-                 "sample_slab", "frames_scan_unroll")
-    ac = _replace(ac, {k: rd[k] for k in execution if k in rd})
     return _model_level_overrides(ac, cfg)
 
 

@@ -14,12 +14,11 @@ calls ignore them. `audio_attn_impl` names the audio self-attention's
 kernel as in the JAX package (flash, flash2, splash, serve, hpack): all
 five compute the same function, kernel A's, and the port routes them
 there; a train step refuses the four forward-only names. The others (scan
-unroll, the splat and quad-row implementation selectors, slab sampling,
-the sparse penultimate level) have no counterpart in the port and are left
-out, so none can be set and then ignored (configs/build.py drops from a
-YAML those whose every value computes the same function and refuses the
-others). Of the render-path knobs, the renderer raises on the values it
-does not implement. The stage-1 fields
+unroll, the splat and quad-row implementation selectors) compute the same
+function whatever their value and are left out, so none can be set and
+then ignored (configs/build.py drops them from a YAML). The render-path
+knobs (slab sampling, the sparse penultimate level, SH colours, the
+planes without the upsampler) are all read by the renderer. The stage-1 fields
 (sapiens_encoder, the triplane encoder's transformers) describe the model
 the weights come from and are read by the stage-1 slice.
 """
@@ -63,10 +62,14 @@ class AvatarConfig:
     upsampler_sparse: bool = False
     upsampler_sparse_max_tiles: int = 384
     upsampler_sparse_tile_px: int = 16
+    # sparse penultimate level too (added onto the dense skip background)
+    upsampler_sparse_penultimate: bool = False
+    upsampler_sparse_pen_max_tiles: int = 128
     upsampler_upconv: str = "poly"
     upsampler_conv: str = "xla"            # 'xla' | 'winograd' | 'winograd_gn'
     upsampler_norm: str = "group"
-    sample_quad: bool = False
+    sample_slab: bool = False     # sparse sampling by 2x2 slabs of haloed tiles
+    sample_quad: bool = False     # sparse sampling by quad rows (kernel Q); before slab
     # sapiens_encoder.yaml
     image_feature_dim: int = 1536
     vit_depth: int = 40

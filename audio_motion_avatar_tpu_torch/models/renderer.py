@@ -5,18 +5,26 @@ frozen sub-selection -> body points; per frame chunk (frames_per_chunk
 frames): the triplane upsampler, two triplane samplings around the PTv3
 point refiner, the five gaussian heads as one fused matmul, and the splat.
 
-Two forms, as the JAX package's Renderer selects them:
-  * serving (upsampler_sparse + sample_quad): the final upsample level on
-    covered tiles only, ONE quad-row build (kernel Q) shared by both
-    samplings; typically with the segmented splat (kernel S);
-  * default (dense upsampler, `sample_triplane_nhwc`): the full-resolution
-    planes, sampled bilinearly; typically with the tile splat (kernel K1).
+The planes and their sampling, as the JAX package's Renderer selects them:
+  * sparse (upsample_triplane and upsampler_sparse): the final upsample
+    level on covered tiles only (with upsampler_sparse_penultimate the
+    level below too), sampled by quad rows (sample_quad: ONE quad-row build,
+    kernel Q, shared by both samplings), else by 2x2 slabs of haloed tiles
+    (sample_slab), else by four taps; the serving form is the quad one,
+    typically with the segmented splat (kernel S);
+  * dense (upsample_triplane): the full-resolution planes, sampled
+    bilinearly (`sample_triplane_nhwc`); sample_quad / sample_slab are
+    ignored there, as in the JAX package;
+  * no upsampler (upsample_triplane False): the low-resolution planes
+    relaid channel-last and sampled the same way.
 splat_segmented picks the splat: kernel S, or the binned tile composite
 K1 (ops/splat_tiles.py). upsampler_conv picks the upsampler's ResBlock
 convs: direct ('xla'), Winograd K9a ('winograd') or, with the group norm,
-K9b fused with it ('winograd_gn'). Other knob values (the 4-tap sparse
-sampler, SH colours) raise. The forward returns (frames, gaussians)
-as the JAX renderer does. Under autograd with cfg.frames_scan_remat (the
+K9b fused with it ('winograd_gn'). Colours: RGB (rgb), or with rgb False
+3 (sh_degree + 1)^2 SH coefficients a gaussian, evaluated per view by the
+splat (ops/splat.sh_colors); the sigmoid applies in both modes, as the
+reference's. The forward returns (frames, gaussians) as the JAX renderer
+does. Under autograd with cfg.frames_scan_remat (the
 JAX package's nn.remat of its frame scan), each frame chunk is recomputed in
 the backward (torch.utils.checkpoint) instead of keeping its upsampler,
 refiner and splat activations.
@@ -36,8 +44,10 @@ from ..ops import subdivision
 from ..ops import splat_tiles
 from ..ops.math_utils import inverse_sigmoid
 from ..ops.splat_segmented import render_frames_segmented
-from ..ops.triplane import (PLANE_AXES, build_quad, sample_triplane_nhwc,
-                            sample_triplane_sparse_quad, tokens_to_planes)
+from ..ops.triplane import (build_quad, plane_grids, sample_triplane_nhwc,
+                            sample_triplane_sparse, sample_triplane_sparse_quad,
+                            sample_triplane_sparse_slab, tile_halo,
+                            tokens_to_planes)
 from .triplane_encoder import flatten_params
 from .upsampler import TriplaneUpsampler
 
@@ -70,38 +80,24 @@ def build_renderer_statics(model: smplx_ops.SmplxModel, device,
                            torch.as_tensor(sel.astype(np.int64), device=device))
 
 
-def _check_supported(cfg) -> None:
-    """Raise on render knobs the port does not implement."""
-    bad = {}
-    if not cfg.upsample_triplane:
-        bad["upsample_triplane"] = cfg.upsample_triplane
-    if cfg.upsampler_sparse != cfg.sample_quad:
-        bad["sample_quad"] = cfg.sample_quad   # the sparse path samples by quads
-    if cfg.upsampler_upconv not in ("dilated", "poly"):
-        bad["upsampler_upconv"] = cfg.upsampler_upconv
-    if not cfg.rgb:
-        bad["rgb"] = cfg.rgb
-    if bad:
-        raise NotImplementedError(
-            "the port renders the serving form (upsampler_sparse and "
-            "sample_quad) or the default form (neither), with the "
-            "dilated / poly up-convolution and RGB colours; "
-            f"got {bad}")
-
-
 class Renderer(nn.Module):
     def __init__(self, cfg, point_refiner: Optional[nn.Module] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.upsampler_upconv not in ("dilated", "poly"):
+            raise ValueError(f"upsampler_upconv {cfg.upsampler_upconv!r} "
+                             "('dilated' or 'poly', the same function)")
         self.cfg = cfg
         C = cfg.triplane_feature_dim
-        self.upsampler = TriplaneUpsampler(
-            C, cfg.num_upsample_blocks, dtype=compute_dtype,
-            sparse_final=cfg.upsampler_sparse,
-            sparse_max_tiles=cfg.upsampler_sparse_max_tiles,
-            sparse_tile_px=cfg.upsampler_sparse_tile_px,
-            norm_mode=cfg.upsampler_norm, conv_impl=cfg.upsampler_conv)
+        if cfg.upsample_triplane:
+            self.upsampler = TriplaneUpsampler(
+                C, cfg.num_upsample_blocks, dtype=compute_dtype,
+                sparse_final=cfg.upsampler_sparse,
+                sparse_max_tiles=cfg.upsampler_sparse_max_tiles,
+                sparse_tile_px=cfg.upsampler_sparse_tile_px,
+                norm_mode=cfg.upsampler_norm, conv_impl=cfg.upsampler_conv,
+                sparse_penultimate=cfg.upsampler_sparse_penultimate,
+                sparse_pen_max_tiles=cfg.upsampler_sparse_pen_max_tiles)
         self.point_refiner = point_refiner
         if point_refiner is not None:
             self.refine_mlp = nn.Sequential(
@@ -112,7 +108,9 @@ class Renderer(nn.Module):
         self.rotation_layer = nn.Linear(in_dim, 4)
         self.scaling_layer = nn.Linear(in_dim, 3)
         self.opacity_layer = nn.Linear(in_dim, 1)
-        self.shs_layer = nn.Linear(in_dim, 3)
+        # RGB: 3 channels; SH: 3 (deg + 1)^2 coefficients evaluated per view
+        self.shs_dim = 3 if cfg.rgb else 3 * (cfg.sh_degree + 1) ** 2
+        self.shs_layer = nn.Linear(in_dim, self.shs_dim)
         self.reset_heads()
 
     @torch.no_grad()
@@ -149,17 +147,31 @@ class Renderer(nn.Module):
         (F, H, W, 3) frames)."""
         cfg = self.cfg
         radius = cfg.radius
-        if cfg.upsampler_sparse:
-            u = torch.clamp(points / radius, -1.0, 1.0)
-            uv = torch.stack([torch.stack([u[..., a0], u[..., a1]], -1)
-                              for a0, a1 in PLANE_AXES], 1)      # (F, 3, N, 2)
+        if cfg.upsample_triplane and cfg.upsampler_sparse:
+            uv = plane_grids(points, radius).reshape(points.shape[0], 3, -1, 2)
             planes = self.upsampler(planes_lr, points_uv=uv)
-            quad = build_quad(planes.tiles, planes.slot, planes.grid)
+            if cfg.sample_quad:
+                quad = build_quad(planes.tiles, planes.slot, planes.grid)
 
-            def sample(p):
-                return sample_triplane_sparse_quad(planes, quad, p, radius)
+                def sample(p):
+                    return sample_triplane_sparse_quad(planes, quad, p, radius)
+            elif cfg.sample_slab:
+                # the haloed tiles built once, shared by both samplings
+                Fn, Pn = planes.tiles.shape[:2]
+                th = tile_halo(planes.tiles.flatten(0, 1), planes.slot.flatten(0, 1),
+                               planes.grid)
+                th = th.reshape((Fn, Pn) + th.shape[1:])
+
+                def sample(p):
+                    return sample_triplane_sparse_slab(planes, th, p, radius)
+            else:
+                def sample(p):
+                    return sample_triplane_sparse(planes, p, radius)
         else:
-            planes = self.upsampler(planes_lr)                    # (F, 3, H, W, C)
+            if cfg.upsample_triplane:
+                planes = self.upsampler(planes_lr)                # (F, 3, H, W, C)
+            else:
+                planes = planes_lr.permute(0, 1, 3, 4, 2)         # (F, 3, R, R, C)
 
             def sample(p):
                 return sample_triplane_nhwc(planes, p, radius)
@@ -172,10 +184,10 @@ class Renderer(nn.Module):
 
         dec_in = torch.cat([points, feats], -1)
         heads = self._heads()
-        w = torch.cat([h.weight for h in heads], 0)               # (14, 771)
+        w = torch.cat([h.weight for h in heads], 0)               # (11 + shs, 3C + 3)
         b = torch.cat([h.bias for h in heads], 0)
         xyz_off, rot, scale, opacity, shs = torch.split(
-            torch.nn.functional.linear(dec_in, w, b), [3, 4, 3, 1, 3], -1)
+            torch.nn.functional.linear(dec_in, w, b), [3, 4, 3, 1, self.shs_dim], -1)
         rot = rot / torch.clamp(torch.linalg.norm(rot, dim=-1, keepdim=True), min=1e-8)
         # colours through the sigmoid in both colour modes (reference quirk)
         gaussians = {"xyz": points + xyz_off + transl, "scale": scale,
@@ -183,13 +195,16 @@ class Renderer(nn.Module):
         H, W = cfg.image_size
         args = (gaussians["xyz"], rot, scale, opacity[..., 0], gaussians["color"],
                 K, E, W, H)
+        sh_degree = None if cfg.rgb else cfg.sh_degree
         if cfg.splat_segmented:
             img = render_frames_segmented(
                 *args, max_per_tile=cfg.max_per_tile,
-                max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap)
+                max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap,
+                sh_degree=sh_degree)
         else:
             img = splat_tiles.render_frames(*args, max_per_tile=cfg.max_per_tile,
-                                            max_window=cfg.splat_max_window)
+                                            max_window=cfg.splat_max_window,
+                                            sh_degree=sh_degree)
         return gaussians, img
 
     def forward(self, statics: RendererStatics, triplane_tokens: torch.Tensor,

@@ -10,8 +10,9 @@
 4. ConvONet-style local pooling: ResnetBlockFC blocks with per-cell max
    pooling between them, then mean-scattered planes.
 
-The encoder-side upsample path (upsample_triplane_encoder, the JAX
-package's TriplaneDownsampler) is not ported: it raises.
+With upsample_triplane (cfg.upsample_triplane_encoder) the pooling and the
+scatter run at R * upsample_factor (96^2 at full width) and the learned
+TriplaneDownsampler (models/upsampler.py) brings the planes back to R.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops import subdivision, triplane
 from ..ops.point_raster import lift_image_features
 from .smplx_decoder import SMPLXDecoder
 from .transformer import Transformer1D
+from .upsampler import TriplaneDownsampler
 
 
 def reshape_params(params: dict, lead: tuple) -> dict:
@@ -69,12 +71,8 @@ class SMPLXTriplaneEncoder(nn.Module):
                  num_expression_coeffs: int = 10,
                  flat_hand_mean: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 upsample_triplane: bool = False):
+                 upsample_triplane: bool = False, upsample_factor: int = 3):
         super().__init__()
-        if upsample_triplane:
-            raise NotImplementedError(
-                "upsample_triplane_encoder (the TriplaneDownsampler path) is "
-                "not ported")
         self.num_verts, self.resolution, self.radius = num_verts, triplane_resolution, radius
         self.feature_dim, self.sample_feature = feature_dim, sample_feature
         self.flat_hand_mean = flat_hand_mean
@@ -95,6 +93,9 @@ class SMPLXTriplaneEncoder(nn.Module):
         self.block_1 = ResnetBlockFC(2 * feature_dim, feature_dim)
         self.block_2 = ResnetBlockFC(2 * feature_dim, feature_dim)
         self.fc_c = nn.Linear(feature_dim, feature_dim)
+        self.upsample_triplane, self.upsample_factor = upsample_triplane, upsample_factor
+        if upsample_triplane:
+            self.triplane_downsampler = TriplaneDownsampler(feature_dim, upsample_factor)
 
     def smpl_predictor(self, image_tokens: torch.Tensor):
         """(BT, S, C_img) -> (params dict over BT, tokens (BT, C, L))."""
@@ -132,13 +133,16 @@ class SMPLXTriplaneEncoder(nn.Module):
             feat = torch.cat([feat, sampled], -1)
         net = self.block_0(self.fc_pos(torch.cat([verts, feat], -1)))
         R = self.resolution
-        cell = triplane.plane_cell_index(verts, self.radius, R)   # (BT, 3, N)
+        res = R * (self.upsample_factor if self.upsample_triplane else 1)
+        cell = triplane.plane_cell_index(verts, self.radius, res)  # (BT, 3, N)
         for block in (self.block_1, self.block_2):
-            pooled = triplane.pool_local_max(net, cell, R)
+            pooled = triplane.pool_local_max(net, cell, res)
             net = block(torch.cat([net, pooled], -1))
         c = self.fc_c(net)
-        planes = torch.stack([triplane.scatter_mean_plane(c, cell[:, p], R)
-                              for p in range(3)], 1)             # (BT, 3, C, R, R)
+        planes = torch.stack([triplane.scatter_mean_plane(c, cell[:, p], res)
+                              for p in range(3)], 1)             # (BT, 3, C, res, res)
+        if self.upsample_triplane:
+            planes = self.triplane_downsampler(planes)
         planes = planes.reshape(B, T, 3, self.feature_dim, R, R)
         if smpl_tokens is not None:
             smpl_tokens = smpl_tokens.reshape((B, T) + smpl_tokens.shape[1:])

@@ -4,7 +4,9 @@ nearest-2x skip path, 32 -> 32 * 2^N, planes channels-last (NHWC).
 Serving evaluates the final (most expensive) level only on the 16 px tiles
 covered by the body's sample points plus a 1-tile halo (`sparse_final`):
 exact on covered tiles with the affine norm; GroupNorm statistics pool over
-the covered tiles there. The nearest-2x + conv3x3 pair is computed as ONE
+the covered tiles there. `sparse_penultimate` does the same one level lower
+and adds the covered tiles onto the skip background. The encoder's
+`TriplaneDownsampler` (two ConvNeXt blocks and a strided conv) is here too. The nearest-2x + conv3x3 pair is computed as ONE
 conv on the input-dilated plane (the JAX package's lhs_dilation=2, padding 2
 conv with the 4x4 kernel T w T^T), written here as the equivalent stride-2
 transposed conv with the spatially flipped kernel.
@@ -298,17 +300,23 @@ class UpsampleBlock(nn.Module):
 class TriplaneUpsampler(nn.Module):
     """planes (B, 3, C, H, W) -> (B, 3, H', W', C) channels-last in the
     compute dtype, or SparseTriplanes when sparse_final and points_uv
-    (B, 3, N, 2) are given."""
+    (B, 3, N, 2) are given. sparse_penultimate (with sparse_final and two
+    blocks or more) also evaluates up_{N-2} on covered tiles only and adds
+    them onto the nearest-2x skip background; the rest of that level holds
+    the skip alone, read only through the final level's halo taps."""
 
     def __init__(self, feature_dim: int = 256, num_blocks: int = 4,
                  dtype: Optional[torch.dtype] = None,
                  sparse_final: bool = False, sparse_max_tiles: int = 384,
                  sparse_tile_px: int = 16, norm_mode: str = "group",
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", sparse_penultimate: bool = False,
+                 sparse_pen_max_tiles: int = 128):
         super().__init__()
         self.feature_dim, self.num_blocks, self.dtype = feature_dim, num_blocks, dtype
         self.sparse_final = sparse_final
         self.sparse_max_tiles, self.sparse_tile_px = sparse_max_tiles, sparse_tile_px
+        self.sparse_penultimate = sparse_penultimate
+        self.sparse_pen_max_tiles = sparse_pen_max_tiles
         for i in range(num_blocks):
             self.add_module(f"up_{i}", UpsampleBlock(feature_dim, feature_dim,
                                                      dtype, norm_mode, conv_impl))
@@ -323,7 +331,8 @@ class TriplaneUpsampler(nn.Module):
         B, P, C, H, W = planes.shape
         x = _cast(planes.reshape(B * P, C, H, W).permute(0, 2, 3, 1), self.dtype)
         sparse = self.sparse_final and points_uv is not None
-        n_dense = self.num_blocks - 1 if sparse else self.num_blocks
+        sparse_pen = sparse and self.sparse_penultimate and self.num_blocks >= 2
+        n_dense = self.num_blocks - 1 - int(sparse_pen) if sparse else self.num_blocks
         skip = x
         for i in range(n_dense):
             up = getattr(self, f"up_{i}")(x)
@@ -333,20 +342,23 @@ class TriplaneUpsampler(nn.Module):
             x = up + skip
         if not sparse:
             return x.reshape((B, P) + x.shape[1:])
+        if sparse_pen:
+            x, skip = self._sparse_scatter_level(x, skip, points_uv,
+                                                 self.num_blocks - 2, n_dense == 0)
         return self._sparse_final_level(x, skip, points_uv, B, P)
 
-    def _sparse_final_level(self, x, skip, points_uv, B, P):
-        FP, Hin, _, C = x.shape
-        if self.num_blocks == 1:      # the final block is also block 0
-            skip = self._skip_proj(skip)
+    def _sparse_eval_level(self, x, points_uv, level: int, cap_cfg: int):
+        """Covered-tile selection at twice x's resolution, haloed input
+        patches and up_{level} on them: x (FP, Hin, Hin, C) -> (tiles (FP,
+        cap, T, T, C), tile_ids, valid, slot, sorted_ids, grid, T, res)."""
+        FP, Hin = x.shape[:2]
         res = Hin * 2
         tile_px = min(self.sparse_tile_px, res)
-        in_tile = tile_px // 2
         grid = res // tile_px
-        cap = min(self.sparse_max_tiles, grid * grid)
+        cap = min(cap_cfg, grid * grid)
         tile_ids, valid, slot, sorted_ids = select_tiles(
             points_uv.reshape(FP, -1, 2), grid, cap, tile_px)
-        patches = gather_patches(x, tile_ids, grid, in_tile, 2)
+        patches = gather_patches(x, tile_ids, grid, tile_px // 2, 2)
         r0 = (tile_ids // grid) * tile_px
         c0 = (tile_ids % grid) * tile_px
 
@@ -359,7 +371,38 @@ class TriplaneUpsampler(nn.Module):
                         u_cols=axis_mask(c0, tile_px + 4, 2),
                         c1_rows=axis_mask(r0, tile_px + 2, 1),
                         c1_cols=axis_mask(c0, tile_px + 2, 1))
-        res_tiles = getattr(self, f"up_{self.num_blocks - 1}")(patches, ctx)
+        tiles = getattr(self, f"up_{level}")(patches, ctx)
+        return tiles, tile_ids, valid, slot, sorted_ids, grid, tile_px, res
+
+    def _sparse_scatter_level(self, x, skip, points_uv, level: int, first: bool):
+        """The sparse penultimate level: up_{level} on covered tiles added
+        onto the dense nearest-2x skip (a covered tile holds up + skip, as
+        the dense recurrence; invalid slots alias tile 0 and add zeros).
+        first: the level is block 0, so it projects the skip. -> (x (FP,
+        2H, 2W, C), skip2x)."""
+        FP = x.shape[0]
+        if first:
+            skip = self._skip_proj(skip)
+        tiles, tile_ids, valid, _, _, grid, T, res = self._sparse_eval_level(
+            x, points_uv, level, self.sparse_pen_max_tiles)
+        skip2x = nearest2x(skip)
+        Cn = tiles.shape[-1]
+        tiles = tiles * valid[..., None, None, None].to(tiles.dtype)
+        base = skip2x.reshape(FP, grid, T, grid, T, Cn).permute(0, 1, 3, 2, 4, 5)
+        idx = tile_ids + grid * grid * torch.arange(FP, device=x.device)[:, None]
+        out = base.reshape(FP * grid * grid, T, T, Cn).index_add(
+            0, idx.reshape(-1), tiles.reshape((-1, T, T, Cn)))
+        out = out.reshape(FP, grid, grid, T, T, Cn).permute(0, 1, 3, 2, 4, 5)
+        return out.reshape(FP, res, res, Cn), skip2x
+
+    def _sparse_final_level(self, x, skip, points_uv, B, P):
+        FP, _, _, C = x.shape
+        if self.num_blocks == 1:      # the final block is also block 0
+            skip = self._skip_proj(skip)
+        res_tiles, tile_ids, valid, slot, sorted_ids, grid, tile_px, res = \
+            self._sparse_eval_level(x, points_uv, self.num_blocks - 1,
+                                    self.sparse_max_tiles)
+        in_tile, cap = tile_px // 2, tile_ids.shape[1]
         skip_patches = gather_patches(skip, tile_ids, grid, in_tile, 0)
         skip2x = nearest2x(skip_patches.reshape(FP * cap, in_tile, in_tile, C))
         tiles = res_tiles + skip2x.reshape(FP, cap, tile_px, tile_px, C)
@@ -369,3 +412,38 @@ class TriplaneUpsampler(nn.Module):
             slot=slot.reshape(B, P, grid * grid),
             valid=valid.reshape(B, P, cap), grid=grid, tile_px=tile_px,
             res=res, sorted_ids=sorted_ids.reshape(B, P, cap))
+
+
+class ConvNeXtBlock(nn.Module):
+    """x + pw2(gelu(pw1(LayerNorm(dwconv7x7(x))))) on (B, H, W, C): a
+    depthwise 7x7 conv, LayerNorm eps 1e-6, exact GELU, 4x expansion."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pw1 = nn.Linear(dim, 4 * dim)
+        self.pw2 = nn.Linear(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dwconv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return x + self.pw2(F.gelu(self.pw1(self.norm(h))))
+
+
+class TriplaneDownsampler(nn.Module):
+    """The encoder's learned downsample: planes (B, 3, C, H, W) -> two
+    ConvNeXt blocks, then a 4x4 conv with stride `factor` and padding 1 ->
+    (B, 3, C, H', W') (96 -> 32 at factor 3)."""
+
+    def __init__(self, feature_dim: int = 256, factor: int = 3):
+        super().__init__()
+        self.block_0 = ConvNeXtBlock(feature_dim)
+        self.block_1 = ConvNeXtBlock(feature_dim)
+        self.down = nn.Conv2d(feature_dim, feature_dim, 4, stride=factor, padding=1)
+
+    def forward(self, planes: torch.Tensor) -> torch.Tensor:
+        B, P, C, H, W = planes.shape
+        x = planes.reshape(B * P, C, H, W).permute(0, 2, 3, 1)
+        x = self.block_1(self.block_0(x))
+        out = self.down(x.permute(0, 3, 1, 2))
+        return out.reshape((B, P, C) + out.shape[-2:])

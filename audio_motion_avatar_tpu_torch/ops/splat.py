@@ -47,6 +47,30 @@ def activate_opacity(raw_opacity: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(raw_opacity - OPACITY_BIAS)
 
 
+def sh_colors(shs: torch.Tensor, xyz: torch.Tensor, cam_center: torch.Tensor,
+              sh_degree: int) -> torch.Tensor:
+    """View-dependent colours from SH coefficients (the rgb=False branch):
+    shs (..., N, 3 (deg+1)^2) flat in the reference's layout (read as (N,
+    coeffs, 3), then channel-major), evaluated along the normalised camera
+    -> gaussian direction, + 0.5, clamped below at 0 (no upper clamp).
+    xyz (..., N, 3), cam_center (..., 3) -> (..., N, 3)."""
+    from .sh import eval_sh
+    coeffs = (sh_degree + 1) ** 2
+    sh = shs.reshape(shs.shape[:-1] + (coeffs, 3)).transpose(-1, -2)
+    d = xyz - cam_center[..., None, :]
+    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-8)
+    return torch.clamp(eval_sh(sh_degree, sh, d) + 0.5, min=0.0)
+
+
+def view_colors(colors: torch.Tensor, xyz: torch.Tensor, cam: Camera,
+                sh_degree=None) -> torch.Tensor:
+    """The colours a view splats: RGB clipped to [0, 1], or with sh_degree
+    set, `sh_colors` of the flat coefficients `colors` from cam's centre."""
+    if sh_degree is None:
+        return torch.clamp(colors, 0.0, 1.0)
+    return sh_colors(colors, xyz, cam.center, sh_degree)
+
+
 def _quat_rot_rows(quats: torch.Tensor):
     q = quats / torch.linalg.norm(quats, dim=-1, keepdim=True).clamp_min(1e-8)
     w, x, y, z = q.unbind(-1)

@@ -24,7 +24,7 @@ import torch
 from .. import kernels
 from .cameras import make_camera
 from .splat import (TILE, Projected, activate_opacity, activate_scales,
-                    blend_tiles_plain, project_gaussians)
+                    blend_tiles_plain, project_gaussians, view_colors)
 
 P = TILE * TILE   # pixels per tile
 NPARAM = 9        # mx, my, cxx, cxy, cyy, opacity, r, g, b
@@ -189,17 +189,19 @@ def pack_frames_segmented(xyz: torch.Tensor, rot: torch.Tensor,
                           raw_scales: torch.Tensor, raw_opacity: torch.Tensor,
                           colors: torch.Tensor, K: torch.Tensor, E: torch.Tensor,
                           width: int, height: int, max_per_tile: int = 512,
-                          max_window: int = 8, large_cap: int = 0):
+                          max_window: int = 8, large_cap: int = 0,
+                          sh_degree=None):
     """F frames of gaussians (F, N, ...) + cameras (F, 3, 3)/(F, 4, 4) ->
     kernel S's inputs (params, starts, counts): projection and sorted
-    binning. RGB colours (the rgb=True renderer)."""
+    binning. RGB colours, or with sh_degree set flat SH coefficients
+    evaluated from each frame's camera (splat.view_colors)."""
     if width % TILE or height % TILE:
         raise ValueError(f"image size {width}x{height} must be a multiple of {TILE}")
     cam = make_camera(K, E, width, height)
     o = raw_opacity[..., 0] if raw_opacity.dim() == 3 else raw_opacity
     proj = project_gaussians(xyz, rot, activate_scales(raw_scales),
-                             activate_opacity(o), torch.clamp(colors, 0.0, 1.0),
-                             cam)
+                             activate_opacity(o),
+                             view_colors(colors, xyz, cam, sh_degree), cam)
     return pack_sorted_params(proj, width, height, max_per_tile, max_window,
                               large_cap=large_cap)
 
@@ -209,14 +211,14 @@ def render_frames_segmented(xyz: torch.Tensor, rot: torch.Tensor,
                             raw_opacity: torch.Tensor, colors: torch.Tensor,
                             K: torch.Tensor, E: torch.Tensor, width: int,
                             height: int, max_per_tile: int = 512,
-                            max_window: int = 8,
-                            large_cap: int = 0) -> torch.Tensor:
+                            max_window: int = 8, large_cap: int = 0,
+                            sh_degree=None) -> torch.Tensor:
     """F frames of gaussians (F, N, ...) + cameras (F, 3, 3)/(F, 4, 4) ->
     images (F, H, W, 3): projection, sorted binning and ONE composite
-    launch over all frames' tiles. RGB colours (the rgb=True renderer)."""
+    launch over all frames' tiles. Colours as `pack_frames_segmented`."""
     params, starts, counts = pack_frames_segmented(
         xyz, rot, raw_scales, raw_opacity, colors, K, E, width, height,
-        max_per_tile, max_window, large_cap)
+        max_per_tile, max_window, large_cap, sh_degree)
     tx, ty = width // TILE, height // TILE
     tiles = composite_segments(params, starts, counts, tx, tx * ty)
     return tiles_to_image(tiles.reshape(xyz.shape[0], tx * ty, P, 3), tx, ty)

@@ -33,7 +33,7 @@ from .. import kernels
 from .cameras import make_camera
 from .splat import (ALPHA_MAX, T_EPS, TILE, Projected, activate_opacity,
                     activate_scales, bin_gaussians_sorted, blend_tiles_plain,
-                    project_gaussians, slot_alpha, tile_pixels)
+                    project_gaussians, slot_alpha, tile_pixels, view_colors)
 from .splat_segmented import NPARAM, P, tiles_to_image
 
 
@@ -216,18 +216,22 @@ def composite(tile_params: torch.Tensor, tx: int,
 def render_frames(xyz: torch.Tensor, rot: torch.Tensor, raw_scales: torch.Tensor,
                   raw_opacity: torch.Tensor, colors: torch.Tensor,
                   K: torch.Tensor, E: torch.Tensor, width: int, height: int,
-                  max_per_tile: int = 512, max_window: int = 8) -> torch.Tensor:
+                  max_per_tile: int = 512, max_window: int = 8,
+                  sh_degree=None) -> torch.Tensor:
     """F views of gaussians (F, N, ...) + cameras (F, 3, 3) / (F, 4, 4) ->
     images (F, H, W, 3): projection, per-view binning and packing, ONE
-    composite launch over all views' tiles. RGB colours, white background."""
+    composite launch over all views' tiles. White background; RGB colours,
+    or with sh_degree set flat SH coefficients evaluated from each view's
+    camera (splat.view_colors)."""
     if width % TILE or height % TILE:
         raise ValueError(f"image size {width}x{height} must be a multiple of {TILE}")
     tx, ty = width // TILE, height // TILE
     F = xyz.shape[0]
     o = raw_opacity[..., 0] if raw_opacity.dim() == 3 else raw_opacity
+    cam = make_camera(K, E, width, height)
     proj = project_gaussians(xyz, rot, activate_scales(raw_scales),
-                             activate_opacity(o), torch.clamp(colors, 0.0, 1.0),
-                             make_camera(K, E, width, height))
+                             activate_opacity(o),
+                             view_colors(colors, xyz, cam, sh_degree), cam)
     packed = torch.cat([
         pack_tile_params(Projected(*(a[f] for a in proj)), width, height,
                          max_per_tile, max_window) for f in range(F)])
@@ -237,10 +241,11 @@ def render_frames(xyz: torch.Tensor, rot: torch.Tensor, raw_scales: torch.Tensor
 
 def render_batch(gaussians: dict, K: torch.Tensor, E: torch.Tensor, width: int,
                  height: int, max_per_tile: int = 512,
-                 max_window: int = 8) -> torch.Tensor:
-    """Multi-view render: gaussians xyz / rot / scale / opacity / color with
-    the cameras' leading dims (..., N, d), K (..., 3, 3), E (..., 4, 4) ->
-    (..., H, W, 3), every view in one composite launch."""
+                 max_window: int = 8, sh_degree=None) -> torch.Tensor:
+    """Multi-view render: gaussians xyz / rot / scale / opacity / color
+    (RGB, or flat SH coefficients with sh_degree set) with the cameras'
+    leading dims (..., N, d), K (..., 3, 3), E (..., 4, 4) -> (..., H, W,
+    3), every view in one composite launch."""
     lead = tuple(E.shape[:-2])
     n = math.prod(lead)
 
@@ -252,7 +257,8 @@ def render_batch(gaussians: dict, K: torch.Tensor, E: torch.Tensor, width: int,
                          gaussians["opacity"].reshape(n, -1),
                          flat(gaussians["color"], gaussians["color"].shape[-1]),
                          K.reshape(n, 3, 3), E.reshape(n, 4, 4), width, height,
-                         max_per_tile=max_per_tile, max_window=max_window)
+                         max_per_tile=max_per_tile, max_window=max_window,
+                         sh_degree=sh_degree)
     return imgs.reshape(lead + (height, width, 3))
 
 

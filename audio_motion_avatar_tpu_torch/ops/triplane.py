@@ -5,10 +5,13 @@ plane 2 "yz". The first coordinate indexes plane width (columns), the
 second height (rows), as F.grid_sample's grid[..., 0] / grid[..., 1];
 sampling is bilinear with align_corners=False and zero padding.
 
-The sparse sampler reads the final upsample level's covered tiles through a
-QUAD layout: row (s, y, x) holds the full 2x2 bilinear footprint
-[t(y,x) | t(y,x+1) | t(y+1,x) | t(y+1,x+1)] with cross-tile taps from the
-right / bottom / diagonal neighbour tiles, so each point reads one 4C row.
+The sparse samplers read the final upsample level's covered tiles. The
+serving one goes through a QUAD layout: row (s, y, x) holds the full 2x2
+bilinear footprint [t(y,x) | t(y,x+1) | t(y+1,x) | t(y+1,x+1)] with
+cross-tile taps from the right / bottom / diagonal neighbour tiles, so each
+point reads one 4C row. The 4-tap form gathers the four texels one by one,
+the slab form one 2x2 slab of a tile with a 1 px halo (`tile_halo`). All
+three are gathers: plain torch indexing, except the quad build (kernel Q).
 """
 
 from __future__ import annotations
@@ -118,18 +121,30 @@ def grid_sample_2d_nhwc(feat: torch.Tensor, grid_xy: torch.Tensor) -> torch.Tens
             + tap(x0i, y0i + 1, wx0 * wy1) + tap(x0i + 1, y0i + 1, wx1 * wy1))
 
 
-def sample_triplane_nhwc(planes: torch.Tensor, points: torch.Tensor,
-                         radius: float) -> torch.Tensor:
-    """Dense triplane sampling: planes (B, 3, H, W, C) channel-last, points
-    (B, N, 3) world -> (B, N, 3C) float32 ordered [xy, xz, yz]."""
+def plane_grids(points: torch.Tensor, radius: float) -> torch.Tensor:
+    """(B, N, 3) world points -> (3B, N, 2) grid_sample coordinates in [-1,
+    1], plane-major within each batch entry."""
     B, N, _ = points.shape
     u = torch.clamp(points / radius, -1.0, 1.0)
     g = torch.stack([torch.stack([u[..., a0], u[..., a1]], -1)
                      for a0, a1 in PLANE_AXES], 1)               # (B, 3, N, 2)
-    feats = grid_sample_2d_nhwc(planes.reshape((B * 3,) + planes.shape[2:]),
-                                g.reshape(B * 3, N, 2))
-    C = feats.shape[-1]
+    return g.reshape(B * 3, N, 2)
+
+
+def concat_planes(feats: torch.Tensor) -> torch.Tensor:
+    """(3B, N, C) per-plane features -> (B, N, 3C) ordered [xy, xz, yz]."""
+    P, N, C = feats.shape
+    B = P // 3
     return feats.reshape(B, 3, N, C).permute(0, 2, 1, 3).reshape(B, N, 3 * C)
+
+
+def sample_triplane_nhwc(planes: torch.Tensor, points: torch.Tensor,
+                         radius: float) -> torch.Tensor:
+    """Dense triplane sampling: planes (B, 3, H, W, C) channel-last, points
+    (B, N, 3) world -> (B, N, 3C) float32 ordered [xy, xz, yz]."""
+    B = points.shape[0]
+    return concat_planes(grid_sample_2d_nhwc(
+        planes.reshape((B * 3,) + planes.shape[2:]), plane_grids(points, radius)))
 
 
 def neighbor_slots(slot: torch.Tensor, grid: int, cap: int):
@@ -278,13 +293,104 @@ def sample_triplane_sparse_quad(sp, quad: torch.Tensor, points: torch.Tensor,
     """(B, N, 3) world points -> (B, N, 3C) float32 features ordered
     [xy, xz, yz], from SparseTriplanes `sp` and its quad rows (B, 3, cap,
     T, T, 4C) (built once, shared by both sampling passes)."""
-    B, N, _ = points.shape
-    u = torch.clamp(points / radius, -1.0, 1.0)
-    g = torch.stack([torch.stack([u[..., a0], u[..., a1]], -1)
-                     for a0, a1 in PLANE_AXES], 1)               # (B, 3, N, 2)
-    feats = grid_sample_2d_sparse_quad(
+    B = points.shape[0]
+    return concat_planes(grid_sample_2d_sparse_quad(
         quad.reshape((B * 3,) + quad.shape[2:]),
-        sp.sorted_ids.reshape(B * 3, -1), g.reshape(B * 3, N, 2),
-        sp.grid, sp.tile_px, sp.res)                             # (3B, N, C)
-    C = feats.shape[-1]
-    return feats.reshape(B, 3, N, C).permute(0, 2, 1, 3).reshape(B, N, 3 * C)
+        sp.sorted_ids.reshape(B * 3, -1), plane_grids(points, radius),
+        sp.grid, sp.tile_px, sp.res))
+
+
+def grid_sample_2d_sparse(tiles: torch.Tensor, slot: torch.Tensor,
+                          grid_xy: torch.Tensor, grid: int, tile_px: int,
+                          res: int) -> torch.Tensor:
+    """The 4-tap sparse sampler: `grid_sample_2d_nhwc`'s math on the
+    covered tiles (Bq, cap, T, T, C) of a res^2 plane, slot (Bq, G*G) tile
+    -> slot (-1 holes); grid_xy (Bq, N, 2) -> (Bq, N, C) float32. A tap
+    whose texel lies in an uncovered tile reads 0."""
+    Bq, cap, T, _, C = tiles.shape
+    rows = tiles.reshape(Bq, cap * T * T, C)
+    x = (grid_xy[..., 0] + 1.0) * (res * 0.5) - 0.5
+    y = (grid_xy[..., 1] + 1.0) * (res * 0.5) - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    x0i, y0i = x0.long(), y0.long()
+    b = torch.arange(Bq, device=tiles.device)[:, None]
+    slot = slot.long()
+
+    def tap(xi, yi, w):
+        inb = (xi >= 0) & (xi < res) & (yi >= 0) & (yi < res)
+        xc, yc = torch.clamp(xi, 0, res - 1), torch.clamp(yi, 0, res - 1)
+        s = torch.gather(slot, 1, (yc // tile_px) * grid + xc // tile_px)
+        ok = inb & (s >= 0)
+        idx = torch.clamp(s, min=0) * (T * T) + (yc % tile_px) * T + xc % tile_px
+        return rows[b, idx].float() * (w * ok)[..., None]
+
+    return (tap(x0i, y0i, wx0 * wy0) + tap(x0i + 1, y0i, wx1 * wy0)
+            + tap(x0i, y0i + 1, wx0 * wy1) + tap(x0i + 1, y0i + 1, wx1 * wy1))
+
+
+def sample_triplane_sparse(sp, points: torch.Tensor, radius: float) -> torch.Tensor:
+    """The 4-tap sparse sampling of SparseTriplanes `sp`: (B, N, 3) world
+    points -> (B, N, 3C) float32 ordered [xy, xz, yz]."""
+    B = points.shape[0]
+    return concat_planes(grid_sample_2d_sparse(
+        sp.tiles.reshape((B * 3,) + sp.tiles.shape[2:]),
+        sp.slot.reshape(B * 3, -1), plane_grids(points, radius),
+        sp.grid, sp.tile_px, sp.res))
+
+
+def tile_halo(tiles: torch.Tensor, slot: torch.Tensor, grid: int) -> torch.Tensor:
+    """Sparse tiles with a +1 px bottom / right halo from their covered
+    neighbours: (FP, cap, T, T, C) + slot (FP, G*G) -> (FP, cap, T+1, T+1,
+    C). Column T of tile (r, c) is column 0 of tile (r, c+1), row T row 0
+    of tile (r+1, c), the corner texel 0 of (r+1, c+1); a neighbour that
+    is uncovered or off the grid reads 0. With the halo, every bilinear
+    2x2 footprint whose top-left texel lies in a tile is one slab of it."""
+    FP, cap, T, _, C = tiles.shape
+    nr, nb, nd = neighbor_slots(slot, grid, cap)
+    ext = torch.cat([tiles, tiles.new_zeros(FP, 1, T, T, C)], 1)  # cap = zero slot
+    f = torch.arange(FP, device=tiles.device)[:, None]
+    right = ext[:, :, :, 0, :][f, nr]                           # (FP, cap, T, C)
+    bottom = ext[:, :, 0, :, :][f, nb]                          # (FP, cap, T, C)
+    corner = ext[:, :, 0, 0, :][f, nd]                          # (FP, cap, C)
+    top = torch.cat([tiles, right[:, :, :, None]], 3)           # (FP, cap, T, T+1, C)
+    bot = torch.cat([bottom, corner[:, :, None]], 2)            # (FP, cap, T+1, C)
+    return torch.cat([top, bot[:, :, None]], 2)
+
+
+def grid_sample_2d_sparse_slab(tiles_h: torch.Tensor, slot: torch.Tensor,
+                               grid_xy: torch.Tensor, grid: int, tile_px: int,
+                               res: int) -> torch.Tensor:
+    """The slab sparse sampler: each point's four taps read as one 2x2
+    slab of its top-left texel's haloed tile (`tile_halo`, (Bq, cap, T+1,
+    T+1, C)); slot (Bq, G*G), grid_xy (Bq, N, 2) -> (Bq, N, C) float32.
+    Equal to the 4-tap sampler (up to reassociation) except where the
+    top-left texel's tile is uncovered and a neighbour tap's is not: the
+    slab then reads 0 for all four."""
+    Bq, cap, T1, _, C = tiles_h.shape
+    x = (grid_xy[..., 0] + 1.0) * (res * 0.5) - 0.5
+    y = (grid_xy[..., 1] + 1.0) * (res * 0.5) - 0.5
+    sx, ax0, ax1 = _lane_weights(x, res)
+    sy, ay0, ay1 = _lane_weights(y, res)
+    sl = torch.gather(slot.long(), 1, (sy // tile_px) * grid + (sx // tile_px))
+    ok = (sl >= 0).float()
+    i00 = (torch.clamp(sl, min=0) * T1 + sy % tile_px) * T1 + sx % tile_px
+    idx = torch.stack([i00, i00 + 1, i00 + T1, i00 + T1 + 1], -1)   # (Bq, N, 4)
+    rows = tiles_h.reshape(Bq, cap * T1 * T1, C)
+    v = rows[torch.arange(Bq, device=tiles_h.device)[:, None, None], idx].float()
+    bx0, bx1 = (ax0 * ok)[..., None], (ax1 * ok)[..., None]
+    return (ay0[..., None] * (bx0 * v[..., 0, :] + bx1 * v[..., 1, :])
+            + ay1[..., None] * (bx0 * v[..., 2, :] + bx1 * v[..., 3, :]))
+
+
+def sample_triplane_sparse_slab(sp, tiles_h: torch.Tensor, points: torch.Tensor,
+                                radius: float) -> torch.Tensor:
+    """The slab sparse sampling of SparseTriplanes `sp` from its haloed
+    tiles (B, 3, cap, T+1, T+1, C) (built once, shared by both sampling
+    passes): (B, N, 3) -> (B, N, 3C) float32 ordered [xy, xz, yz]."""
+    B = points.shape[0]
+    return concat_planes(grid_sample_2d_sparse_slab(
+        tiles_h.reshape((B * 3,) + tiles_h.shape[2:]),
+        sp.slot.reshape(B * 3, -1), plane_grids(points, radius),
+        sp.grid, sp.tile_px, sp.res))

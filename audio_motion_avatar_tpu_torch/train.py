@@ -9,8 +9,9 @@ batch_id)` runs one micro-step (forward, backward, optimizer call) and
 returns its metrics as floats. On the card every D = 64 attention, the ViT
 excepted, runs kernel A forward and A-bwd backward, and every tile
 composite K1 forward and K2 backward; configurations that select a
-forward-only kernel (segmented splat, sparse upsampler / quad sampling) are
-refused here. The CLIs' epoch loop, logging and checkpoints are
+forward-only kernel (the segmented splat S, the quad sampling Q, the
+forward-only attention names) are refused here; the sparse upsampler
+trains with the 4-tap or slab sampler. The CLIs' epoch loop, logging and checkpoints are
 training/trainer.py's (main.py, main2.py); the device mesh of the JAX
 package's trainer is not ported yet.
 """

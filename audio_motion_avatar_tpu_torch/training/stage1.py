@@ -47,7 +47,8 @@ def stage1_loss(model, statics, ref_batch: VideoBatch,
         H, W = cfg.image_size
         novel = render_multi_view(gaussians_b, test_batch.cam_parms["intrinsic"],
                                   test_batch.cam_parms["extrinsic"], W, H,
-                                  max_per_tile=cfg.max_per_tile)
+                                  max_per_tile=cfg.max_per_tile,
+                                  sh_degree=None if cfg.rgb else cfg.sh_degree)
         test_hwc = test_batch.video.permute(0, 1, 3, 4, 2)
         l1_test = L.l1_loss(novel, test_hwc)
         ssim_test = 1.0 - L.ssim(novel, test_hwc)

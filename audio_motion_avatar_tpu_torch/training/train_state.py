@@ -206,19 +206,29 @@ class TrainState:
                               self.trainable)
 
 
+# where the quad sampler's training (a backward for kernel Q) is queued
+QUAD_TRAINING_ITEM = "ROADMAP.md section 1 item 9 (training with sample_quad)"
+
+
 def check_differentiable(cfg) -> None:
     """Refuse, when a training step is built, the options that select a
-    forward-only kernel: the segmented splat (kernel S) and the sparse
-    upsampler's quad sampling (kernel Q) have no backward, nor have the
-    JAX package's forward-only attention kernels (audio_attn_impl flash2,
-    splash, serve, hpack). The Winograd convs train (their backward is the
-    direct conv's)."""
-    bad = [name for name in ("splat_segmented", "upsampler_sparse", "sample_quad")
-           if getattr(cfg, name)]
+    forward-only kernel: the segmented splat (kernel S), the quad sampling
+    of the sparse upsampler (kernel Q; QUAD_TRAINING_ITEM) and the JAX
+    package's forward-only attention kernels (audio_attn_impl flash2,
+    splash, serve, hpack). sample_quad selects Q only where the renderer
+    reads it, on the sparse upsampler; the dense path ignores it. Everything
+    else trains by autograd: the sparse upsampler with the 4-tap or slab
+    sampler, the Winograd convs (their backward is the direct conv's), SH
+    colours."""
+    quad = cfg.sample_quad and cfg.upsample_triplane and cfg.upsampler_sparse
+    bad = (["splat_segmented"] if cfg.splat_segmented else []) + (["sample_quad"] if quad else [])
     if cfg.audio_attn_impl in FORWARD_ONLY_ATTN_IMPLS:
         bad.append(f"audio_attn_impl={cfg.audio_attn_impl}")
     if bad:
         raise ValueError(
             f"training needs a differentiable path: {', '.join(bad)} selects a "
-            "forward-only kernel (a serving option); train with the default "
-            "form (tile splat, dense upsampler, audio_attn_impl flash)")
+            "forward-only kernel (a serving option); S (splat_segmented), Q "
+            f"(sample_quad; {QUAD_TRAINING_ITEM}) and the attention kernels "
+            f"{', '.join(FORWARD_ONLY_ATTN_IMPLS)} have no backward. Train "
+            "with the tile splat, the dense upsampler or the sparse one with "
+            "the 4-tap or slab sampler, and audio_attn_impl flash")

@@ -114,3 +114,16 @@ def smplx_param_loss(pred_params: dict, gt_params: dict,
         losses["transl_smoothl1"] = l_t
         total = total + weights.get("transl", 1.0) * l_t
     return total, losses
+
+
+def chamfer_distance(x: torch.Tensor, y: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Symmetric chamfer distance of point sets x (B, N, 3), y (B, M, 3):
+    the mean over each set of its points' least squared distance to the
+    other set, the two directions added, then the mean over the batch. The
+    (N, M) distances are taken `chunk` rows at a time."""
+    def one_dir(a, b):                      # (B, N, 3), (B, M, 3) -> (B,)
+        mins = [((a[:, i:i + chunk, None, :] - b[:, None, :, :]) ** 2).sum(-1).amin(2)
+                for i in range(0, a.shape[1], chunk)]
+        return torch.cat(mins, 1).mean(1)
+
+    return (one_dir(x, y) + one_dir(y, x)).mean()

@@ -157,13 +157,14 @@ Phases (any failure exits non-zero):
  14. train CLI, stage 2 — main2.main --mode train on config_stage_2.yaml (bf16)
                with the TED reader on a 42-frame clip at 1296 x 2304 from
                phase 11's seeded weights, B = 2: 7 steps, the last taking the
-               prediction cache; then --mode test from its checkpoint; the
-               same checks, the cache depth of each step, the ms of a step
-               beside phase 11's.
+               prediction cache; then --mode test from its checkpoint on
+               the clip's first 22 frames (4 items); the same checks, the
+               cache depth of each step, the ms of a step beside phase 11's.
  14b. train CLI, stage 2, workers — phase 14's fit with
                training.dataloader.num_workers=4 (the native prefetch ring,
-               built by g++ into build/host/): the ring that ran, every item
-               handed on once, the launches; the wall a step beside phase 14's.
+               built by g++ into build/host/) on the clip's first 22 frames
+               (2 steps): the ring that ran, every item handed on once, the
+               launches; the wall a step beside phase 14's.
  15. import demo — `main2.main --mode demo --checkpoint FILE`: phase 12's demo
                at 2 chunks from a seeded Lightning .ckpt of the released
                stage-2 checkpoint's 649 tensor names and shapes
@@ -178,10 +179,33 @@ Phases (any failure exits non-zero):
                item): 4 micro-steps, validation, checkpoint, then --mode test
                equal to the validation as in 13; the ms of a micro-step beside
                phase 10's, the reader's seconds an item, launches, peak memory.
+17a. small render forms — the forms the serving and default paths leave out,
+               at the tiny profile, card against CPU on the same seeded
+               weights: fp32 rollouts with SH colours (rgb False) of degree 1
+               and 3 sampled by quad rows (Q), four taps, slabs, and four taps
+               over the sparse penultimate level, and one without the
+               upsampler (frames mean|diff| <= 1e-3); a stage-1 forward with
+               the encoder's upsample path (TriplaneDownsampler) and SH
+               colours (1e-3); one stage-1 train step with rgb False and one
+               with the sparse upsampler's 4-tap sampler, each held as in 9;
+ 17. render forms — full width, bf16, the synthetic body: the serving model
+               with SH colours of degree 3 (a 48-wide shs head), B = 2, T_in =
+               2, T_out = 6, 512^2, 2 requests in each form (quad: Q then S;
+               4-tap; slab; 4-tap with the sparse penultimate level) on the
+               same tokens: launches, frames not blank, fps beside phase 4's;
+               slab, quad and the penultimate form held to the 4-tap frames
+               (mean|diff| <= 1e-2, 40 dB); a stage-1 model (SH degree 3,
+               the encoder's upsample path: scatter at 96^2, downsampled to
+               32^2; 1024^2, 8 test views): on its seeded weights the novel
+               views not blank and one reconstruction request without the
+               upsampler beside phase 7's; then 4 micro-steps holding one
+               update beside phase 10's, launches, peak memory, finite
+               losses, the update moving the downsampler, the shs head and
+               the loss.
 Each phase prints its seconds, and the script its whole run's. Then one
 {"kernels": [...]} line (nine kernels: splash is kernel A under the JAX
 package's splash name; each kernel's launches those of its paths,
-phases 15 and 16 added), the card's name and power limit, and as the last
+phases 15, 16, 17a and 17 added), the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Takes about a quarter of an hour on one
 H100, the kernels' build included.
 """
@@ -1373,7 +1397,8 @@ def check_small(dev):
 def run_rollout(dev, requests=3, tag="rollout", **knobs):
     """The full-width bf16 serving rollout (knobs: config overrides, e.g.
     upsampler_conv and audio_attn_impl): one warm-up and `requests` timed
-    requests. Returns the launches and (rollout, tokens, first request)."""
+    requests. Returns the launches, (rollout, tokens, first request) and the
+    fps."""
     import numpy as np
     import torch
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
@@ -1449,7 +1474,7 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[{tag}] fps {B * T_out / mean_s:.2f} (= {B * T_out} / "
           f"{1e3 * mean_s:.1f} ms), peak memory {peak / 2**30:.2f} GiB", flush=True)
-    return launches, (roll, tri, smpl, reqs[0])
+    return launches, (roll, tri, smpl, reqs[0]), B * T_out / mean_s
 
 
 def profile_rollout(roll, tri, smpl, req, tag="profile"):
@@ -1519,20 +1544,20 @@ def segment_entries(cfg, gaussians, cams):
     return int(counts.sum())
 
 
-def frames_close(got, want, name):
+def frames_close(got, want, name, against="the direct convs'"):
     """A serving / render knob of the bf16 rounding class (the Winograd
-    convs) against the direct-conv frames on the same inputs and weights:
-    mean |diff| <= 1e-2 and PSNR >= 40 dB (the JAX package's gate for such
-    a knob, its tests/test_demo_golden.py)."""
+    convs, the sparse samplers) against `against`'s frames on the same
+    inputs and weights: mean |diff| <= 1e-2 and PSNR >= 40 dB (the JAX
+    package's gate for such a knob, its tests/test_demo_golden.py)."""
     import math
     diff = (got.float() - want.float()).abs()
     mse = float((diff ** 2).mean())
     psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
-    print(f"[{name}] frames against the direct convs' on the same inputs: mean|diff|="
+    print(f"[{name}] frames against {against} on the same inputs: mean|diff|="
           f"{float(diff.mean()):.3e} (tol 1e-2), max|diff|={float(diff.max()):.3e}, PSNR "
           f"{psnr:.2f} dB (tol 40)", flush=True)
     if not (float(diff.mean()) <= 1e-2 and psnr >= 40.0):
-        raise AssertionError(f"{name}: frames differ from the direct convs' beyond the "
+        raise AssertionError(f"{name}: frames differ from {against} beyond the "
                              "rounding class")
 
 
@@ -1627,11 +1652,29 @@ def check_small_stage1(dev):
     frames_ok(card[1], "small stage 1 novel")
 
 
+def reconstruction_launches(cfg):
+    """Kernel launches of one reconstruction request: K1 twice (the
+    reference view, then all novel views); kernel A in the ViT's layers, the
+    predictor's and the fusion's layers (self + cross each) and the PTv3
+    dec0 blocks, where their heads are 64 wide; K9a / K9b in the one
+    upsampler pass (the reference frame)."""
+    from audio_motion_avatar_tpu_torch.ops.attention import KERNEL_HEAD_DIM
+
+    stacks = ((cfg.image_feature_dim // cfg.vit_heads, cfg.vit_depth),
+              (cfg.smplx_transformer_head_dim, 2 * cfg.smplx_transformer_layers),
+              (cfg.cross_transformer_head_dim, 2 * cfg.cross_transformer_layers),
+              (cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0], cfg.ptv3_dec_depths[0]))
+    k9a, k9b = upsampler_launches(cfg) if cfg.upsample_triplane else (0, 0)
+    return {"composite_tiles": 2,
+            "attention": sum(n for d, n in stacks if d == KERNEL_HEAD_DIM),
+            "winograd_conv3x3": k9a, "winograd_conv3x3_gn_relu": k9b}
+
+
 def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
     """The full-width bf16 stage-1 reconstruction: B = 1, a 1024^2 reference
     view and 8 novel views per request (knobs: config overrides, e.g.
-    upsampler_conv). Returns the launches and the last request's
-    (reference, novel) frames on the CPU."""
+    upsampler_conv). Returns the launches, the last request's (reference,
+    novel) frames on the CPU and the mean ms a request."""
     import dataclasses
 
     import torch
@@ -1675,20 +1718,7 @@ def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
         times.append(time.perf_counter() - t0)
     launches = {fn.__name__: fn.launches for fn in counters}
     peak = torch.cuda.max_memory_allocated(dev)
-    # kernel A: the ViT's layers, the predictor's and the fusion's layers
-    # (self + cross each) and the PTv3 dec0 blocks, where their heads are
-    # 64 wide
-    stacks = ((cfg.image_feature_dim // cfg.vit_heads, cfg.vit_depth),
-              (cfg.smplx_transformer_head_dim, 2 * cfg.smplx_transformer_layers),
-              (cfg.cross_transformer_head_dim, 2 * cfg.cross_transformer_layers),
-              (cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0], cfg.ptv3_dec_depths[0]))
-    # K9a / K9b: one upsampler pass a request (the one reference frame)
-    k9a, k9b = upsampler_launches(cfg)
-    per_request = {
-        "composite_tiles": 2,      # the reference view, then all novel views
-        "attention": sum(n for d, n in stacks if d == at.KERNEL_HEAD_DIM),
-        "winograd_conv3x3": k9a, "winograd_conv3x3_gn_relu": k9b}
-    expected = {k: v * requests for k, v in per_request.items()}
+    expected = {k: v * requests for k, v in reconstruction_launches(cfg).items()}
     print(f"[{tag}] launches {launches} expected {expected}", flush=True)
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1728,7 +1758,7 @@ def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
     print(f"[{tag}] stages: ViT {ms_vit:.1f} ms, image features {ms_feat:.1f} ms, "
           f"triplane encoder {ms_enc:.1f} ms, fusion {ms_fus:.1f} ms, renderer "
           f"{ms_ren:.1f} ms, 8 novel views {ms_nov:.1f} ms", flush=True)
-    return launches, (out.reference.cpu(), out.novel.cpu())
+    return launches, (out.reference.cpu(), out.novel.cpu()), 1e3 * mean_s
 
 
 def serve_from_reference(dev):
@@ -1934,11 +1964,21 @@ def check_small_train(dev):
     the count the configuration implies.
     Also printed: the distances with the fp32 plain attention on the CPU,
     the yardstick that leaves the kernels' rounding out."""
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+
+    for stage in (1, 2):
+        hold_train_step(dev, stage, AvatarConfig.tiny(image_size=(32, 32)), f"stage {stage}")
+
+
+def hold_train_step(dev, stage, cfg, name, tag="small train"):
+    """Phase 9's two holds of one tiny train step of `stage` in configuration
+    `cfg` (32x32): the fp32 step card vs CPU, then the bf16 step with
+    64-wide heads against the CPU's with the kernels' rounding
+    (check_small_train says how). Returns the bf16 step's launches."""
     import dataclasses
 
     import torch
     from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
-    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
@@ -1946,7 +1986,7 @@ def check_small_train(dev):
     from audio_motion_avatar_tpu_torch.training.train_state import OptimConfig
 
     body = smplx_ops.synthetic_model(seed=0, num_verts=300)
-    size = (32, 32)
+    size = tuple(cfg.image_size)
     counters = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd,
                 Wg.winograd_conv3x3, Wg.winograd_conv3x3_gn_relu)
     optim = OptimConfig(learning_rate=1e-3, accumulate_steps=1)
@@ -1978,62 +2018,60 @@ def check_small_train(dev):
         with kernel_rounding():
             return run(stage, cfg, "cpu", torch.bfloat16, tokens, seeds)
 
-    for stage in (1, 2):
-        cfg = AvatarConfig.tiny(image_size=size)
-        loss_cpu, g_cpu, tokens = run(stage, cfg, "cpu", None, None)
-        loss_card, g_card, _ = run(stage, cfg, dev, None, tokens)
-        dl, dg = abs(loss_card - loss_cpu) / abs(loss_cpu), grads_distance(g_card, g_cpu)
-        print(f"[small train] stage {stage} tiny fp32 step, card vs CPU: loss {loss_card:.6f} "
-              f"vs {loss_cpu:.6f} (relative {dl:.2e}, tol 1e-4), gradients relative "
-              f"{dg:.2e} (tol 1e-3)", flush=True)
-        if not (dl <= 1e-4 and dg <= 1e-3):
-            raise AssertionError(f"tiny stage-{stage} train step on the card disagrees with the CPU")
+    loss_cpu, g_cpu, tokens = run(stage, cfg, "cpu", None, None)
+    loss_card, g_card, _ = run(stage, cfg, dev, None, tokens)
+    dl, dg = abs(loss_card - loss_cpu) / abs(loss_cpu), grads_distance(g_card, g_cpu)
+    print(f"[{tag}] {name} tiny fp32 step, card vs CPU: loss {loss_card:.6f} "
+          f"vs {loss_cpu:.6f} (relative {dl:.2e}, tol 1e-4), gradients relative "
+          f"{dg:.2e} (tol 1e-3)", flush=True)
+    if not (dl <= 1e-4 and dg <= 1e-3):
+        raise AssertionError(f"tiny {name} train step on the card disagrees with the CPU")
 
-        cfg = dataclasses.replace(cfg, smplx_transformer_head_dim=64, cross_transformer_head_dim=64,
-                                  audio_transformer_head_dim=64)
-        for fn in counters:
-            fn.launches = 0
-        with checked_backwards() as worst:
-            loss_card, g_card, _ = run(stage, cfg, dev, torch.bfloat16, tokens)
-        launches = {fn.__name__: fn.launches for fn in counters}
-        B, T_in, T_out = (1, 1, 3) if stage == 1 else (2, cfg.triplane_input_frames,
-                                                       cfg.triplane_output_frames)
-        want = train_launches(cfg, stage, B, T_in, T_out)
-        loss_r, g_r, _ = rounded_cpu(stage, cfg, tokens)
-        loss_p, g_p, _ = run(stage, cfg, "cpu", torch.bfloat16, tokens)
-        loss_f, g_f, _ = run(stage, cfg, "cpu", None, tokens)
-        noise = [(abs(loss_r - loss_f), grads_distance(g_r, g_f))]
-        for seeds in draws[1:]:
-            lf_, gf_, own = run(stage, cfg, "cpu", None, None, seeds)
-            lr_, gr_, _ = rounded_cpu(stage, cfg, own, seeds)
-            noise.append((abs(lr_ - lf_), grads_distance(gr_, gf_)))
-        got = (abs(loss_card - loss_r), grads_distance(g_card, g_r))
-        tol = tuple(3 * max(n[i] for n in noise) for i in (0, 1))
-        print(f"[small train] stage {stage} tiny bf16 step, 64-wide heads: launches {launches} "
-              f"(expected {want}); A-bwd and K2 on the step's own inputs against their plain "
-              f"versions: excess {worst['attention_bwd']:.3f}, "
-              f"{worst['composite_tiles_bwd']:.3f} (tol 1); A-bwd against the fp32 plain "
-              f"backward instead {worst['attention_bwd_fp32']:.3f}", flush=True)
-        print(f"[small train] stage {stage} tiny bf16 step: loss card {loss_card:.6f}, CPU bf16 "
-              f"rounding as the kernels {loss_r:.6f}, CPU bf16 with the fp32 plain attention "
-              f"{loss_p:.6f}, CPU fp32 {loss_f:.6f}; card vs CPU bf16 rounding as the kernels: "
-              f"loss |diff| {got[0]:.3e}, gradients relative {got[1]:.3e}; that CPU bf16 vs "
-              f"CPU fp32 over the draws {list(draws)}: loss "
-              f"{', '.join(f'{n[0]:.3e}' for n in noise)}, gradients "
-              f"{', '.join(f'{n[1]:.3e}' for n in noise)} (tol 3x the largest: "
-              f"{tol[0]:.3e}, {tol[1]:.3e}); with the fp32 plain attention instead: card vs CPU "
-              f"bf16 {abs(loss_card - loss_p):.3e}, {grads_distance(g_card, g_p):.3e}, CPU bf16 "
-              f"vs fp32 {abs(loss_p - loss_f):.3e}, {grads_distance(g_p, g_f):.3e}; the two CPU "
-              f"bf16 steps apart {abs(loss_r - loss_p):.3e}, {grads_distance(g_r, g_p):.3e}",
-              flush=True)
-        if launches != want:
-            raise AssertionError(f"launches {launches} != {want}")
-        if not (worst["attention_bwd"] <= 1.0 and worst["composite_tiles_bwd"] <= 1.0):
-            raise AssertionError(f"tiny bf16 stage-{stage} train step: a backward kernel "
-                                 f"disagrees with its plain version on its inputs: {worst}")
-        if not (got[0] <= tol[0] and got[1] <= tol[1] and tol[1] > 0):
-            raise AssertionError(f"tiny bf16 stage-{stage} train step on the card disagrees "
-                                 "with the CPU")
+    cfg = dataclasses.replace(cfg, smplx_transformer_head_dim=64, cross_transformer_head_dim=64,
+                              audio_transformer_head_dim=64)
+    for fn in counters:
+        fn.launches = 0
+    with checked_backwards() as worst:
+        loss_card, g_card, _ = run(stage, cfg, dev, torch.bfloat16, tokens)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    B, T_in, T_out = (1, 1, 3) if stage == 1 else (2, cfg.triplane_input_frames,
+                                                   cfg.triplane_output_frames)
+    want = train_launches(cfg, stage, B, T_in, T_out)
+    loss_r, g_r, _ = rounded_cpu(stage, cfg, tokens)
+    loss_p, g_p, _ = run(stage, cfg, "cpu", torch.bfloat16, tokens)
+    loss_f, g_f, _ = run(stage, cfg, "cpu", None, tokens)
+    noise = [(abs(loss_r - loss_f), grads_distance(g_r, g_f))]
+    for seeds in draws[1:]:
+        lf_, gf_, own = run(stage, cfg, "cpu", None, None, seeds)
+        lr_, gr_, _ = rounded_cpu(stage, cfg, own, seeds)
+        noise.append((abs(lr_ - lf_), grads_distance(gr_, gf_)))
+    got = (abs(loss_card - loss_r), grads_distance(g_card, g_r))
+    tol = tuple(3 * max(n[i] for n in noise) for i in (0, 1))
+    print(f"[{tag}] {name} tiny bf16 step, 64-wide heads: launches {launches} "
+          f"(expected {want}); A-bwd and K2 on the step's own inputs against their plain "
+          f"versions: excess {worst['attention_bwd']:.3f}, "
+          f"{worst['composite_tiles_bwd']:.3f} (tol 1); A-bwd against the fp32 plain "
+          f"backward instead {worst['attention_bwd_fp32']:.3f}", flush=True)
+    print(f"[{tag}] {name} tiny bf16 step: loss card {loss_card:.6f}, CPU bf16 "
+          f"rounding as the kernels {loss_r:.6f}, CPU bf16 with the fp32 plain attention "
+          f"{loss_p:.6f}, CPU fp32 {loss_f:.6f}; card vs CPU bf16 rounding as the kernels: "
+          f"loss |diff| {got[0]:.3e}, gradients relative {got[1]:.3e}; that CPU bf16 vs "
+          f"CPU fp32 over the draws {list(draws)}: loss "
+          f"{', '.join(f'{n[0]:.3e}' for n in noise)}, gradients "
+          f"{', '.join(f'{n[1]:.3e}' for n in noise)} (tol 3x the largest: "
+          f"{tol[0]:.3e}, {tol[1]:.3e}); with the fp32 plain attention instead: card vs CPU "
+          f"bf16 {abs(loss_card - loss_p):.3e}, {grads_distance(g_card, g_p):.3e}, CPU bf16 "
+          f"vs fp32 {abs(loss_p - loss_f):.3e}, {grads_distance(g_p, g_f):.3e}; the two CPU "
+          f"bf16 steps apart {abs(loss_r - loss_p):.3e}, {grads_distance(g_r, g_p):.3e}",
+          flush=True)
+    check_launches(f"{tag} {name}", launches, want)
+    if not (worst["attention_bwd"] <= 1.0 and worst["composite_tiles_bwd"] <= 1.0):
+        raise AssertionError(f"tiny bf16 {name} train step: a backward kernel "
+                             f"disagrees with its plain version on its inputs: {worst}")
+    if not (got[0] <= tol[0] and got[1] <= tol[1] and tol[1] > 0):
+        raise AssertionError(f"tiny bf16 {name} train step on the card disagrees "
+                             "with the CPU")
+    return launches
 
 
 def run_train(dev, stage, conv="xla"):
@@ -2603,6 +2641,19 @@ def ted_fixture(root, body, dev, frames, size, render_size=None, seed=0, chunk=6
     return time.perf_counter() - t0
 
 
+def ted_prefix(root, dst, frames):
+    """A TED-layout clip at `dst` of the first `frames` frames of the clip
+    at `root`, by symbolic links (the wav too: the reader trims it to the
+    frames' duration)."""
+    import shutil
+    shutil.rmtree(dst, ignore_errors=True)
+    for sub in ("imgs_png", "samurai_seg", "smplx_params"):
+        os.makedirs(os.path.join(dst, sub))
+        for name in sorted(os.listdir(os.path.join(root, sub)))[:frames]:
+            os.symlink(os.path.join(root, sub, name), os.path.join(dst, sub, name))
+    os.symlink(os.path.join(root, "speech.wav"), os.path.join(dst, "speech.wav"))
+
+
 def logged_scalars(out):
     """(step, tag, value) of every event file under <out>/tb (the test run's
     trainer opens one too, without scalars)."""
@@ -3054,7 +3105,8 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     batch 2, one epoch of 7 steps (batch ids 0, 2, ..., 12) at
     cache_replacement_prob 1, so the step at batch 12 takes the prediction
     batch 0 cached; then `main2.main --mode test` from the written
-    checkpoint (14 items, B = 1). Checks finite losses, moved trainable
+    checkpoint on the clip's first 22 frames (4 items, B = 1). Checks
+    finite losses, moved trainable
     parameters, a bit-identical ViT, the event files, the comparison PNGs,
     the cache depth of each step and K1 / K2 / A / A-bwd launches as the
     config implies; prints the ms of a step through the CLI (to its metrics
@@ -3112,9 +3164,11 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    ted_prefix(root, os.path.join(CLI_DIR, "ted_22"), 22)
     with counted() as test_launches:
         test = cli2.main(["--device", str(dev), "--config", config, "--mode", "test",
-                          "--checkpoint", os.path.join(out, "checkpoints"), *over])
+                          "--checkpoint", os.path.join(out, "checkpoints"), *over,
+                          f"dataset.root_dir={os.path.join(CLI_DIR, 'ted_22')}"])
     test_s = time.perf_counter() - t0
     ac = build_avatar_config(ConfigLoader.load_config(config, over))
     want_fit = add_launches((train_launches(ac, 2, 2, 2, 6), len(steps)))
@@ -3143,7 +3197,7 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     if not all(os.path.exists(f) for f in files) or \
             os.listdir(os.path.join(out, "checkpoints")) != ["7"]:
         raise AssertionError(f"{tag}: an output is missing")
-    if not test["batches"] == 14 or not test["l1"] == test["l1"]:
+    if not test["batches"] == 4 or not test["l1"] == test["l1"]:
         raise AssertionError(f"{tag}: the test run {test}")
     if fit_launches != want_fit or test_launches != want_test:
         raise AssertionError(f"{tag}: launches differ from what the config implies")
@@ -3198,10 +3252,11 @@ def wall_per_step(times):
 
 
 def cli_train_stage2_workers(dev, phase14, size=(1296, 2304), extra=()):
-    """14b: phase 14's fit again (its clip, checkpoint and overrides) with
-    training.dataloader.num_workers=4: the TED reader's items come through
-    the prefetch ring's 4 threads, ahead of the steps, in the order they
-    complete. Checks that the native ring ran (built with g++ from
+    """14b: phase 14's fit again (its checkpoint and overrides) with
+    training.dataloader.num_workers=4, on the clip's first 22 frames (4
+    items, 2 steps; the script's time limit): the TED reader's items come
+    through the prefetch ring's 4 threads, ahead of the steps, in the order
+    they complete. Checks that the native ring ran (built with g++ from
     csrc/prefetch.cpp), that every item of the clip was handed on exactly
     once, the steps' count, finite losses and the launches; prints the wall
     per step (batch hand-off to hand-off) beside phase 14's and the step's
@@ -3216,7 +3271,8 @@ def cli_train_stage2_workers(dev, phase14, size=(1296, 2304), extra=()):
 
     tag = "train CLI, stage 2, workers"
     config = os.path.join(PORT_CONFIGS, "config_stage_2.yaml")
-    root, out = os.path.join(CLI_DIR, "ted"), os.path.join(CLI_DIR, "stage2_workers")
+    root, out = os.path.join(CLI_DIR, "ted_22"), os.path.join(CLI_DIR, "stage2_workers")
+    ted_prefix(os.path.join(CLI_DIR, "ted"), root, 22)
     over = ["model.compute_dtype=bfloat16", f"dataset.root_dir={root}",
             f"dataset.wav2vec2_model_path={os.path.join(DEMO_DIR, 'wav2vec2_base')}",
             "training.max_epochs=1", "training.cache_replacement_prob=1.0",
@@ -3250,7 +3306,7 @@ def cli_train_stage2_workers(dev, phase14, size=(1296, 2304), extra=()):
     if seen["ring"] != "native":
         raise AssertionError(f"{tag}: the prefetch ring ran {seen['ring']!r}: {seen['error']}")
     if sorted(seen["items"]) != list(range(n_items)) or n_items != 2 * len(steps) or \
-            len(steps) != 7:
+            len(steps) != 2:
         raise AssertionError(f"{tag}: items {sorted(seen['items'])} of {n_items}, {len(steps)} steps")
     if not all(math.isfinite(st["metrics"]["loss"]) for st in steps):
         raise AssertionError(f"{tag}: non-finite losses")
@@ -3608,6 +3664,337 @@ def cli_train_idol(dev, phase10_ms, size=IDOL_SIZE, extra=()):
     return fit_launches
 
 
+def grey_sh(model, bias=-2.0, weight_scale=1.0):
+    """Seeded SH heads give every coefficient about sigmoid(0) = 0.5, so the
+    colours sit near 0.64 plus view terms that reach past white (the SH
+    colour has no upper clamp); a lower bias keeps them grey against the
+    white background, the view terms still visible. weight_scale quiets the
+    head's noise where its features are large (the planes without the
+    upsampler feed it the fusion's raw tokens)."""
+    import torch
+    with torch.no_grad():
+        model.renderer.shs_layer.bias.fill_(bias)
+        model.renderer.shs_layer.weight.mul_(weight_scale)
+
+
+def render_form_configs(base):
+    """The sparse serving forms of phases 17a and 17 on `base` (which
+    samples by quad rows): name -> configuration."""
+    import dataclasses
+    return {"quad": base,
+            "4-tap": dataclasses.replace(base, sample_quad=False),
+            "slab": dataclasses.replace(base, sample_quad=False, sample_slab=True),
+            "4-tap, sparse penultimate": dataclasses.replace(
+                base, sample_quad=False, upsampler_sparse_penultimate=True)}
+
+
+def check_small_forms(dev):
+    """17a: the render forms at the tiny profile on the card against the CPU
+    (plain versions), the same seeded weights on both: fp32 rollouts with
+    SH colours (rgb False) at degrees 1 and 3 in the quad, 4-tap, slab and
+    sparse-penultimate forms (tiles of 8 px, 6 of 16 kept; 3 of 4 at the
+    penultimate level), and without the upsampler, frames mean|diff| <= 1e-3
+    (phase 3's bound); a stage-1 forward with the encoder's upsample path
+    and SH colours, frames mean|diff| <= 1e-3 (phase 6's); one stage-1 train
+    step with rgb False and one with the sparse upsampler sampled by four
+    taps, each held as phase 9 holds its steps (hold_train_step). Returns
+    the launches of S, Q, A, K1, K2 and A-bwd on the card (the bf16 train
+    steps' as hold_train_step counts them)."""
+    import dataclasses
+
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+    from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
+    from audio_motion_avatar_tpu_torch.serve import build_rollout, synthetic_inputs
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    tag = "small forms"
+    body = smplx_ops.synthetic_model(seed=0, num_verts=300)
+    counters = (at.attention, at.attention_bwd, tp.quad_rows, ss.composite_segments,
+                st.composite_tiles, st.composite_tiles_bwd)
+    for fn in counters:
+        fn.launches = 0
+
+    def rollout(cfg, d):
+        r = build_rollout(cfg, device=d, smplx_model=body, seed=0)
+        perturb_heads(r.model, seed=1, std=0.05)
+        tame_seeded_weights(r.model)
+        visible_heads(r.model)
+        if not cfg.rgb:
+            grey_sh(r.model)
+        tri, smpl, audio, cams = synthetic_inputs(cfg, 2, d, seed=0)
+        return r(tri, smpl, audio, cams)[0].float().cpu()
+
+    tiny = serving_config(AvatarConfig.tiny(image_size=(32, 32)), num_upsample_blocks=2,
+                          max_per_tile=512, upsampler_norm="affine",
+                          upsampler_sparse_tile_px=8, upsampler_sparse_max_tiles=6,
+                          upsampler_sparse_pen_max_tiles=3)
+    cases = {f"SH degree {deg}, {form}": cfg for deg in (1, 3)
+             for form, cfg in render_form_configs(
+                 dataclasses.replace(tiny, rgb=False, sh_degree=deg)).items()}
+    cases["no upsampler"] = dataclasses.replace(tiny, upsample_triplane=False)
+    for name, cfg in cases.items():
+        card, cpu = rollout(cfg, dev), rollout(cfg, "cpu")
+        diff = float((card - cpu).abs().mean())
+        print(f"[{tag}] tiny fp32 rollout, {name}: card vs CPU frames mean|diff|={diff:.3e} "
+              f"(tol 1e-3), per-frame std min {float(card.reshape(12, -1).std(1).min()):.4f}",
+              flush=True)
+        if not (diff <= 1e-3 and torch.isfinite(card).all()):
+            raise AssertionError(f"{tag}: tiny rollout ({name}) on the card disagrees with the CPU")
+
+    ref_np, test_np = make_batch(1, 1, (64, 64), seed=0), make_batch(1, 3, (64, 64), seed=1)
+
+    def reconstruct(cfg, d, image_tokens=None):
+        rec = build_reconstructor(cfg, device=d, smplx_model=body, seed=0)
+        perturb_heads(rec.model, seed=1, std=0.05)
+        visible_heads(rec.model)
+        grey_sh(rec.model)
+        if image_tokens is not None:
+            flat = image_tokens.to(d).reshape((-1,) + image_tokens.shape[2:])
+            rec.model.sapiens_encoder.forward = lambda images: flat
+        out = rec(to_device(ref_np, d), to_device(test_np, d))
+        return [x.float().cpu() for x in (out.reference, out.novel, out.output.image_tokens)]
+
+    cfg = dataclasses.replace(AvatarConfig.tiny(image_size=(64, 64)),
+                              upsample_triplane_encoder=True, rgb=False, sh_degree=1)
+    cpu = reconstruct(cfg, "cpu")
+    card = reconstruct(cfg, dev, cpu[2])
+    diff = float(torch.cat([(card[i] - cpu[i]).abs().flatten() for i in (0, 1)]).mean())
+    print(f"[{tag}] tiny fp32 reconstruction, encoder upsample path (scatter at "
+          f"{3 * cfg.triplane_resolution}^2, downsampled to {cfg.triplane_resolution}^2), SH "
+          f"degree 1: card vs CPU frames mean|diff|={diff:.3e} (tol 1e-3)", flush=True)
+    if not (diff <= 1e-3 and torch.isfinite(card[0]).all()):
+        raise AssertionError(f"{tag}: tiny reconstruction on the card disagrees with the CPU")
+
+    total = {fn.__name__: fn.launches for fn in counters}
+    tiny_train = AvatarConfig.tiny(image_size=(32, 32))
+    for name, knobs in (("stage 1, rgb=False (SH degree 1)", dict(rgb=False, sh_degree=1)),
+                        ("stage 1, sparse upsampler, 4-tap",
+                         dict(upsampler_sparse=True, upsampler_sparse_tile_px=4,
+                              upsampler_sparse_max_tiles=6))):
+        step = hold_train_step(dev, 1, dataclasses.replace(tiny_train, **knobs), name, tag=tag)
+        for k, v in step.items():
+            total[k] = total.get(k, 0) + v
+    print(f"[{tag}] launches on the card {total}", flush=True)
+    return total
+
+
+def check_launches(name, launches, want):
+    """Fail unless a path's kernel launches are what its configuration
+    implies (kernels that launched nothing left out of both)."""
+    launches, want = ({k: v for k, v in d.items() if v} for d in (launches, want))
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want}")
+
+
+def run_render_forms(dev, phase4_fps, phase7_ms, phase10_ms):
+    """17: the render forms at full width, bf16, the synthetic body, seeded
+    weights. Serving: one model with SH colours of degree 3 (a 48-wide shs
+    head) at the serving shape (B = 2, T_in = 2, T_out = 6, 512^2), 1
+    warm-up and 2 requests in each form of render_form_configs on the same
+    tokens and audio: launches, frames_ok, fps beside phase 4's; slab,
+    quad and the sparse penultimate form against 4-tap under frames_close.
+    Stage-1 training: AvatarConfig() with SH colours of degree 3 and the
+    encoder's upsample path (scatter at 96^2, downsampled to 32^2), 1024^2,
+    one reference view and 8 test views, train_stage1.yaml's optimizer
+    (accumulate 4): on the seeded weights, the novel views not blank and a
+    reconstruction with them without the upsampler (upsample_triplane
+    False), 1 warm-up and 1 request beside phase 7's; then 1 warm-up and 4
+    micro-steps, so that the window holds one update in four micro-steps as
+    phase 10's holds two in eight: launches, finite losses, the
+    downsampler, the shs head and the loss moved by the update; ms a
+    micro-step beside phase 10's, peak memory. Returns the launches of the
+    three parts, summed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+    from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
+    from audio_motion_avatar_tpu_torch.serve import build_rollout, serve, synthetic_inputs
+    from audio_motion_avatar_tpu_torch.train import STAGE1_OPTIM
+    from audio_motion_avatar_tpu_torch.training import stage1
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    tag = "render forms"
+    dev = torch.device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    counters = (at.attention, at.attention_bwd, tp.quad_rows, ss.composite_segments,
+                st.composite_tiles, st.composite_tiles_bwd)
+    total = {fn.__name__: 0 for fn in counters}
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def read():     # the launches since the last reset or read, added to total
+        got = {fn.__name__: fn.launches for fn in counters}
+        reset()
+        for k, v in got.items():
+            total[k] += v
+        return {k: v for k, v in got.items() if v}
+
+    base = serving_config(AvatarConfig(), image_size=(512, 512),
+                          upsampler_norm="affine", rgb=False, sh_degree=3)
+    # phase 4's seeded RGB model, its 3-wide colour head widened to 48
+    # coefficients (seeded noise, grey_sh's bias): the same bodies as phase 4
+    t0 = time.perf_counter()
+    rgb = build_rollout(dataclasses.replace(base, rgb=True, sh_degree=0), device=dev,
+                        dtype=torch.bfloat16, seed=0)
+    perturb_heads(rgb.model, seed=1, std=1e-2)
+    tame_seeded_weights(rgb.model)
+    weights = rgb.model.state_dict()
+    del rgb
+    head = next(k[:-len(".weight")] for k in weights if k.endswith("renderer.shs_layer.weight"))
+    width = 3 * (base.sh_degree + 1) ** 2
+    g = torch.Generator().manual_seed(2)
+    weights[head + ".weight"] = (1e-2 * torch.randn(
+        width, weights[head + ".weight"].shape[1], generator=g)).to(dev)
+    weights[head + ".bias"] = torch.full((width,), -2.0, device=dev)
+    first = build_rollout(base, device=dev, dtype=torch.bfloat16, state_dict=weights)
+    print(f"[{tag}] serving models built in {time.perf_counter() - t0:.1f} s (shs head "
+          f"{first.model.renderer.shs_layer.out_features} wide)", flush=True)
+    tri, smpl, audio, cams = synthetic_inputs(base, 2, dev, seed=0)
+    rng = np.random.RandomState(1)
+    reqs = [(torch.as_tensor(rng.randn(*audio.shape).astype(np.float32) * 0.1, device=dev), cams)
+            for _ in range(2)]
+    mcfg = first.model.cfg
+    B, T_out = 2, mcfg.triplane_output_frames
+    n_chunks = B * T_out // mcfg.frames_per_chunk
+    dec0 = mcfg.ptv3_dec_depths[0] if mcfg.ptv3_dec_channels[0] // mcfg.ptv3_dec_heads[0] == 64 else 0
+    frames = {}
+    for name, cfg in render_form_configs(base).items():
+        roll = first if name == "quad" else build_rollout(cfg, device=dev, dtype=torch.bfloat16,
+                                                          state_dict=weights)
+        list(serve(roll, tri, smpl, [(audio, cams)]))
+        sync()
+        reset()
+        times, out = [], []
+        it = serve(roll, tri, smpl, reqs)
+        for _ in reqs:
+            t0 = time.perf_counter()
+            rendered, _ = next(it)
+            sync()
+            times.append(time.perf_counter() - t0)
+            out.append(rendered.float())
+        launches = read()
+        want = {"attention": (mcfg.audio_transformer_layers * T_out + dec0 * n_chunks) * len(reqs),
+                "quad_rows": n_chunks * len(reqs) if cfg.sample_quad else 0,
+                "composite_segments": n_chunks * len(reqs)}
+        fps = B * T_out * len(times) / sum(times)
+        print(f"[{tag}] serving, SH degree 3, {name}: requests "
+              f"{', '.join(f'{1e3 * s:.1f}' for s in times)} ms, fps {fps:.2f} (phase 4, "
+              f"RGB quad: {phase4_fps:.2f}); launches {launches} "
+              f"expected {want}", flush=True)
+        check_launches(f"{tag}: {name}", launches, want)
+        for i, fr in enumerate(out):
+            frames_ok(fr, f"{tag} {name} request {i}")
+        frames[name] = out
+        if roll is not first:
+            del roll
+    for i in range(len(reqs)):
+        for name in ("slab", "quad", "4-tap, sparse penultimate"):
+            frames_close(frames[name][i], frames["4-tap"][i], f"{tag} {name} request {i}",
+                         against="the 4-tap form's")
+    del first, weights, frames
+    torch.cuda.empty_cache()
+
+    cfg = AvatarConfig(rgb=False, sh_degree=3, upsample_triplane_encoder=True)
+    H, W = cfg.image_size
+    t0 = time.perf_counter()
+    tr = seeded_trainer(1, cfg, dev, torch.bfloat16, optim=STAGE1_OPTIM)
+    grey_sh(tr.model)
+    print(f"[{tag}] stage-1 trainer built in {time.perf_counter() - t0:.1f} s", flush=True)
+    ref = to_device(make_batch(1, 1, (H, W), seed=0), dev)
+    test = to_device(make_batch(1, 8, (H, W), seed=1), dev)
+    # the seeded weights before any update (one Adam step on seeded weights
+    # can move every body out of the views): the novel views, and a
+    # reconstruction with them but without the upsampler
+    with torch.no_grad():
+        novel = stage1.stage1_loss(tr.model, tr.statics, ref, test, cfg)[3]
+    frames_ok(novel, f"{tag} stage-1 novel views")
+    del novel
+    read()      # that forward's launches are in no expectation below
+    rcfg = dataclasses.replace(cfg, upsample_triplane=False)
+    rec = build_reconstructor(rcfg, device=dev, dtype=torch.bfloat16, state_dict={
+        k: v for k, v in tr.model.state_dict().items() if not k.startswith("renderer.upsampler.")})
+    grey_sh(rec.model, weight_scale=0.01)
+    rec(ref, test)
+    sync()
+    reset()
+    t0 = time.perf_counter()
+    out = rec(ref, test)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read()
+    want = reconstruction_launches(rcfg)
+    print(f"[{tag}] reconstruction without the upsampler ({rcfg.triplane_resolution}^2 "
+          f"planes), SH degree 3: request {ms:.1f} ms (phase 7: "
+          f"{phase7_ms:.1f}); launches {launches} expected "
+          f"{want}", flush=True)
+    check_launches(f"{tag}: reconstruction", launches, want)
+    frames_ok(out.reference, f"{tag} reconstruction reference")
+    frames_ok(out.novel, f"{tag} reconstruction novel")
+    del rec, out
+    torch.cuda.empty_cache()
+
+    new = {k: p.detach().clone() for k, p in tr.state.trainable.items()
+           if "triplane_downsampler." in k or "renderer.shs_layer." in k}
+    m = tr.step(ref, test)
+    sync()
+    reset()
+    peak_memory(dev, reset=True)
+    times, metrics = [], []
+    for _ in range(STAGE1_OPTIM.accumulate_steps):
+        t0 = time.perf_counter()
+        metrics.append(tr.step(ref, test))
+        sync()
+        times.append(time.perf_counter() - t0)
+    peak = peak_memory(dev)
+    launches = read()
+    want = {k: len(times) * v for k, v in train_launches(cfg, 1, 1, 1, 8).items()}
+    ms = 1e3 * sum(times) / len(times)
+    print(f"[{tag}] stage-1 train, SH degree 3, encoder upsample path: warm-up loss "
+          f"{m['loss']:.5f}; micro-steps {', '.join(f'{1e3 * s:.1f}' for s in times)} ms, "
+          f"{ms:.1f} ms a micro-step (phase 10: {phase10_ms:.1f}), losses "
+          f"{[round(mt['loss'], 5) for mt in metrics]}, peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches} expected {want}", flush=True)
+    check_launches(f"{tag}: stage-1 train", launches, want)
+    if not all(np.isfinite([mt["loss"], mt["grad_norm"]]).all() for mt in metrics):
+        raise AssertionError(f"{tag}: non-finite loss or gradient norm")
+    # the window holds one update (the warm-up and three micro-steps
+    # accumulate, the fourth applies): the new parameters moved, and the
+    # last micro-step's loss, taken after it, moved with them
+    moved = sorted(k.split("triplane_downsampler.")[-1].split("renderer.")[-1]
+                   for k, p in tr.state.trainable.items()
+                   if k in new and not torch.equal(p.detach(), new[k]))
+    print(f"[{tag}] stage-1 train: the update moved {len(moved)} of the {len(new)} tensors of "
+          f"the downsampler and the shs head: {moved}", flush=True)
+    if not (any(k.startswith("shs_layer.") for k in moved)
+            and any(k.startswith(("block_", "down.")) for k in moved)
+            and metrics[-1]["loss"] != metrics[0]["loss"]):
+        raise AssertionError(f"{tag}: the stage-1 update did not move the downsampler, the "
+                             f"shs head and the loss ({moved})")
+    del tr
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase(name, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3665,9 +4052,9 @@ def main():
         phase("2c parent comparison", compare_parent, dev,
               sys.argv[sys.argv.index("--parent") + 1])
     phase("3 small", check_small, dev)
-    roll, state = phase("4 rollout", run_rollout, dev)
+    roll, state, fps4 = phase("4 rollout", run_rollout, dev)
     phase("5 profile", profile_rollout, *state)
-    wino, wstate = phase("4b serve, Winograd + splash", run_rollout, dev,
+    wino, wstate, _ = phase("4b serve, Winograd + splash", run_rollout, dev,
                          tag="serve, Winograd + splash", upsampler_conv="winograd",
                          audio_attn_impl="splash")
     compare_serving(state, wstate, "serve, Winograd + splash")
@@ -3676,8 +4063,8 @@ def main():
           tag="profile, Winograd + splash")
     del wstate
     phase("6 small stage 1", check_small_stage1, dev)
-    rec, rec_frames = phase("7 reconstruct", run_reconstruction, dev)
-    rec_gn, gn_frames = phase("7b reconstruct, winograd_gn", run_reconstruction, dev,
+    rec, rec_frames, ms7 = phase("7 reconstruct", run_reconstruction, dev)
+    rec_gn, gn_frames, _ = phase("7b reconstruct, winograd_gn", run_reconstruction, dev,
                               requests=2, tag="reconstruct, winograd_gn",
                               upsampler_conv="winograd_gn")
     for got, want, view in zip(gn_frames, rec_frames, ("reference", "novel")):
@@ -3700,13 +4087,15 @@ def main():
     phase("14b train CLI, stage 2, workers", cli_train_stage2_workers, dev, p14)
     demo15 = phase("15 import demo", import_demo, dev)
     idol16 = phase("16 train CLI, IDOL", cli_train_idol, dev, ms1)
+    small17 = phase("17a small render forms", check_small_forms, dev)
+    forms17 = phase("17 render forms", run_render_forms, dev, fps4, ms7, ms1)
 
     # each kernel's launches on its path: S and Q in the serving rollout
     # (phase 4), K1 and A in the reconstruction (phase 7), K2 and A-bwd in
     # the two training runs (phases 10, 11), K9a and splash (kernel A) in the
     # Winograd + splash rollout (4b), K9b in the winograd_gn reconstruction
     # and training (7b, 10b); each path's counts are printed above
-    # (phases 15 and 16 add their S, Q, A, K1, K2 and A-bwd launches)
+    # (phases 15, 16, 17a and 17 add their S, Q, A, K1, K2 and A-bwd launches)
     k9b = "winograd_conv3x3_gn_relu"
     launches = {"splat_segments": roll["composite_segments"] + demo15["composite_segments"],
                 "quad_rows": roll["quad_rows"] + demo15["quad_rows"],
@@ -3718,6 +4107,11 @@ def main():
                 + idol16["attention_bwd"],
                 "winograd": wino["winograd_conv3x3"], "winograd_gn": rec_gn[k9b] + train_gn[k9b],
                 "splash": wino["attention"]}
+    for name, fn in (("splat_segments", "composite_segments"), ("quad_rows", "quad_rows"),
+                     ("attention", "attention"), ("splat_tiles", "composite_tiles"),
+                     ("splat_tiles_bwd", "composite_tiles_bwd"),
+                     ("attention_bwd", "attention_bwd")):
+        launches[name] += small17.get(fn, 0) + forms17[fn]
     pallas = "audio_motion_avatar_tpu/"
     sources = {"splat_segments": ("splat_segments.cu", pallas + "ops/splat_pallas.py:503"),
                "quad_rows": ("quad_rows.cu", pallas + "ops/triplane.py:506"),

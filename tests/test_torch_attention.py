@@ -20,7 +20,7 @@ from audio_motion_avatar_tpu.models.transformer import Attention as JaxAttention
 from audio_motion_avatar_tpu_torch.models.ptv3 import _PatchAttention
 from audio_motion_avatar_tpu_torch.models.transformer import Attention
 from audio_motion_avatar_tpu_torch.ops import attention as at
-from torch_parity import load_flax, random_params, t
+from torch_parity import load_flax, one_torch_thread, random_params, t  # noqa: F401
 
 TOL = 1e-5
 

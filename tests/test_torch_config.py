@@ -1,7 +1,7 @@
 """The port's YAML configs (configs/loader.py, configs/yaml_subset.py,
 configs/build.py) against the JAX package's on the same files: the merged
 trees, the built AvatarConfig / OptimConfig field by field, the knobs the
-port refuses, and the parser against PyYAML's safe_load. No jit: seconds."""
+port drops, and the parser against PyYAML's safe_load. No jit: seconds."""
 
 import dataclasses
 import filecmp
@@ -89,10 +89,15 @@ def test_default_affine_norm_for_import(tmp_path, checkpoint, explicit):
     "model.sample_slab=true"])
 @pytest.mark.parametrize("name", ["config_stage_2.yaml", "config_tiny.yaml"])
 def test_refused_knobs_raise_by_name(name, override):
-    _, p = _load(name, [override])
+    """The knobs the port refused before it rendered their forms (slab
+    sampling, the sparse penultimate level) now build: the config equals
+    the JAX build field for field, with the knob set."""
+    j, p = _load(name, [override])
     knob = override.split("=")[0].split(".")[-1]
-    with pytest.raises(ValueError, match=knob):
-        build.build_avatar_config(p)
+    want, got = jax_build.build_avatar_config(j), build.build_avatar_config(p)
+    assert getattr(got, knob) is True
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
 @pytest.mark.parametrize("override", [
@@ -102,10 +107,18 @@ def test_refused_knobs_raise_by_name(name, override):
     "model.renderer.sample_slab=false"])
 def test_ignored_knobs_accepted(override):
     """Knobs whose every value computes the same function are dropped: the
-    config equals the one built without them."""
-    _, p = _load("config_stage_2.yaml", [override])
+    config equals the one built without them. The two the port reads since
+    it renders their forms (upsampler_sparse_pen_max_tiles, sample_slab)
+    change that field alone, to the JAX build's value."""
+    j, p = _load("config_stage_2.yaml", [override])
     _, base = _load("config_stage_2.yaml", [])
-    assert build.build_avatar_config(p) == build.build_avatar_config(base)
+    knob = override.split("=")[0].split(".")[-1]
+    got, plain = build.build_avatar_config(p), build.build_avatar_config(base)
+    if knob in build.IGNORED_KNOBS:
+        assert got == plain
+        return
+    assert getattr(got, knob) == getattr(jax_build.build_avatar_config(j), knob)
+    assert dataclasses.replace(got, **{knob: getattr(plain, knob)}) == plain
 
 
 def test_dtype_refusal_names_the_override():

@@ -43,6 +43,7 @@ from audio_motion_avatar_tpu_torch.ops.cameras import make_camera
 from audio_motion_avatar_tpu_torch.ops.splat import (Projected, activate_opacity,
                                                      activate_scales, project_gaussians)
 from audio_motion_avatar_tpu_torch.train import build_trainer
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def jax_dense_attention(q, k, v, mask):

@@ -33,7 +33,7 @@ from audio_motion_avatar_tpu_torch.models.smplx_decoder import SMPLXDecoder
 from audio_motion_avatar_tpu_torch.ops import rotations as rot
 from audio_motion_avatar_tpu_torch.ops import smplx
 from audio_motion_avatar_tpu_torch.ops import subdivision as sub
-from torch_parity import load_flax, random_params, t
+from torch_parity import load_flax, one_torch_thread, random_params, t  # noqa: F401
 
 
 @pytest.mark.parametrize("num_verts", [300, 1000])

@@ -49,7 +49,8 @@ from audio_motion_avatar_tpu_torch.ops import smplx as tsmplx
 from audio_motion_avatar_tpu_torch.reconstruct import build_reconstructor
 from audio_motion_avatar_tpu_torch.training.stage1 import make_render_fn
 from audio_motion_avatar_tpu_torch.weights import params_from_flax
-from torch_parity import random_params
+from test_torch_train_stage1 import FAST_COMPILE
+from torch_parity import one_torch_thread, random_params  # noqa: F401
 
 FIXTURE = Path(__file__).parent / "fixtures" / "demo_tiny_ckpt"
 CONFIG = Path(__file__).resolve().parents[1] / "audio_motion_avatar_tpu" / "configs" / "config_tiny.yaml"
@@ -57,6 +58,12 @@ CONFIG = Path(__file__).resolve().parents[1] / "audio_motion_avatar_tpu" / "conf
 
 def _jax(batch):
     return jax.tree_util.tree_map(jnp.asarray, batch)
+
+
+def jitted(fn, *args):
+    """fn(*args) compiled by XLA's CPU backend at its lowest optimisation
+    level (op by op the JAX model takes several times longer)."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
 
 
 def _perturb(params, rng):
@@ -88,18 +95,21 @@ def tiny():
     jref, jtest = _jax(ref), _jax(test)
     params = random_params(model, 32, statics, jref.video, jref.smpl_parms, jref.cam_parms)
     params = _perturb(params, np.random.RandomState(33))
-    out = model.apply({"params": params}, statics, jref.video, jref.smpl_parms, jref.cam_parms)
-    _, metrics = jstage1_loss(model, params, statics, jref, jtest, jcfg)
+    out = jitted(lambda p, v, sp, c: model.apply({"params": p}, statics, v, sp, c),
+                 params, jref.video, jref.smpl_parms, jref.cam_parms)
+    _, metrics = jitted(lambda p, r, t: jstage1_loss(model, p, statics, r, t, jcfg),
+                        params, jref, jtest)
     gb = {k: v.reshape((1, -1) + v.shape[1:])[:, 0] for k, v in out.gaussians.items()
           if k != "shs"}
-    novel = jrender_multi_view(gb, jtest.cam_parms["intrinsic"], jtest.cam_parms["extrinsic"],
-                               64, 64, max_per_tile=jcfg.max_per_tile)
+    novel = jitted(lambda g, K, E: jrender_multi_view(g, K, E, 64, 64,
+                                                      max_per_tile=jcfg.max_per_tile),
+                   gb, jtest.cam_parms["intrinsic"], jtest.cam_parms["extrinsic"])
     # the ViT alone in fp32, to measure the bf16 noise of the image tokens
     from audio_motion_avatar_tpu.models.image_encoder import SapiensEncoder
     vit32 = SapiensEncoder(jcfg.image_feature_dim, jcfg.vit_depth, jcfg.vit_heads,
                            jcfg.vit_patch, jcfg.sapiens_resolution, compute_dtype=jnp.float32)
-    tokens32 = vit32.apply({"params": params["sapiens_encoder"]},
-                           jref.video.reshape((2,) + jref.video.shape[2:]))
+    tokens32 = jitted(lambda p, v: vit32.apply({"params": p}, v), params["sapiens_encoder"],
+                      jref.video.reshape((2,) + jref.video.shape[2:]))
 
     rec = build_reconstructor(AvatarConfig.tiny(), device="cpu",
                               smplx_model=tsmplx.synthetic_model(seed=0, num_verts=300),

@@ -28,13 +28,15 @@ import jax
 import jax.numpy as jnp
 
 from audio_motion_avatar_tpu.data.synthetic import make_batch
+from audio_motion_avatar_tpu.models.config import AvatarConfig as JaxConfig
 from audio_motion_avatar_tpu.ops import smplx as jax_smplx
 
 from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
 from audio_motion_avatar_tpu_torch.ops import smplx as torch_smplx
 from audio_motion_avatar_tpu_torch.serve import build_rollout, serve
 from audio_motion_avatar_tpu_torch.weights import params_from_flax
-from torch_parity import jax_serving_avatar, random_params
+from test_torch_train_stage1 import FAST_COMPILE
+from torch_parity import jax_serving_avatar, one_torch_thread, random_params  # noqa: F401
 
 OVERRIDES = dict(num_upsample_blocks=2, max_per_tile=512,
                  upsampler_sparse_max_tiles=3, upsampler_norm="affine",
@@ -83,7 +85,8 @@ def runs():
     params = random_params(model, 7, tri, smpl, audio[0], jcam,
                            method=lambda m, *a: chunk(m, *a, render=False))
     params = _perturb(params, np.random.RandomState(8))
-    rollout = jax.jit(lambda p, *a: model.apply({"params": p}, *a, method=chunk))
+    rollout = jax.jit(lambda p, *a: model.apply({"params": p}, *a, method=chunk)).lower(
+        params, tri, smpl, audio[0], jcam).compile(compiler_options=FAST_COMPILE)
 
     # JAX: two requests with the host-side window slide
     jax_out, t, s = [], tri, smpl
@@ -168,22 +171,51 @@ def test_serving_profile_matches_jax():
         assert getattr(AvatarConfig.tiny(), f.name) == getattr(JaxConfig.tiny(), f.name), f.name
 
 
+def _jax_tree(stage1, **knobs):
+    """The JAX tiny model's parameter tree with `knobs` set (traced with
+    eval_shape, drawn from a seed): the serving rollout's, or with stage1
+    the TriplaneGaussianAvatar's."""
+    jbody = jax_smplx.synthetic_model(seed=0, num_verts=300)
+    if not stage1:
+        cfg, model, chunk = jax_serving_avatar(jbody, **knobs)
+        rng = np.random.RandomState(0)
+        C, L = cfg.triplane_feature_dim, cfg.smpl_token_len
+        tri = rng.randn(1, 2, C, 3 * cfg.triplane_resolution ** 2).astype(np.float32)
+        smpl = rng.randn(1, 2, C, L).astype(np.float32)
+        audio = rng.randn(1, 6, cfg.audio_feature_dim).astype(np.float32)
+        cams = {k: jnp.asarray(v) for k, v in make_batch(1, 6, cfg.image_size, seed=3)
+                .cam_parms.items()}
+        return random_params(model, 1, tri, smpl, audio, cams,
+                             method=lambda m, *a: chunk(m, *a, render=False))
+    from audio_motion_avatar_tpu.models.avatar import TriplaneGaussianAvatar as JaxAvatar
+    from audio_motion_avatar_tpu.models.ptv3 import build_point_refiner
+    from audio_motion_avatar_tpu.models.renderer import build_renderer_statics
+    cfg = dataclasses.replace(JaxConfig.tiny(image_size=(32, 32)), **knobs)
+    statics = build_renderer_statics(jbody, subdivide_steps=cfg.subdivide_steps)
+    model = JaxAvatar(cfg=cfg, num_verts_encoder=300 + np.asarray(jbody.faces).shape[0],
+                      point_refiner=build_point_refiner(cfg))
+    b = make_batch(1, 1, cfg.image_size, seed=0)
+    return random_params(model, 2, statics, jnp.asarray(b.video), b.smpl_parms,
+                         {k: jnp.asarray(v) for k, v in b.cam_parms.items()})
+
+
 @pytest.mark.parametrize("knob,value", [("sample_quad", False),
                                         ("splat_segmented", False),
                                         ("upsampler_upconv", "poly")])
 def test_renderer_rejects_non_serving_knobs(knob, value):
-    """On the serving form (sparse final upsample level), turning the quad
-    sampler off asks for the JAX package's 4-tap sparse sampler, which the
-    port does not implement, and raises. The tile splat (K1) and the poly
-    up-convolution belong to the default form, which the port renders: the
-    model builds and selects them."""
+    """The serving form without the quad sampler is the JAX package's 4-tap
+    sparse sampler (refused before it was ported): the model builds, reads
+    the knob and holds the JAX model's parameters leaf for leaf (its forward
+    against JAX: tests/test_torch_render_forms.py). The tile splat (K1) and
+    the poly up-convolution belong to the default form: the model builds
+    and selects them."""
     from audio_motion_avatar_tpu_torch.models.audio_avatar import AudioDrivenAvatar
     cfg = serving_config(AvatarConfig.tiny(image_size=(32, 32)), **{knob: value})
+    model = AudioDrivenAvatar(cfg)
+    assert getattr(model.renderer.cfg, knob) == value
     if knob == "sample_quad":
-        with pytest.raises(NotImplementedError, match=knob):
-            AudioDrivenAvatar(cfg)
-        return
-    assert getattr(AudioDrivenAvatar(cfg).renderer.cfg, knob) == value
+        tree = _jax_tree(False, **{knob: value})
+        model.load_state_dict(params_from_flax(tree), strict=True)
 
 
 @pytest.mark.parametrize("knob,value", [("rgb", False), ("upsample_triplane_encoder", True),
@@ -191,12 +223,21 @@ def test_renderer_rejects_non_serving_knobs(knob, value):
 def test_renderer_rejects_unported_knobs(knob, value):
     """SH colours (ops/sh.py), the encoder-side upsample path (the stage-1
     triplane encoder's TriplaneDownsampler, so the stage-1 stack is built)
-    and the planes without the upsampler are not ported: they raise rather
-    than run something else."""
+    and the planes without the upsampler, refused before they were ported,
+    now build: the stage-1 model holds the JAX model's parameters of that
+    configuration leaf for leaf (their forwards against JAX:
+    tests/test_torch_render_forms.py, tests/test_torch_stage1.py)."""
     from audio_motion_avatar_tpu_torch.models.audio_avatar import AudioDrivenAvatar
-    with pytest.raises(NotImplementedError, match=knob):
-        AudioDrivenAvatar(dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)),
-                                              **{knob: value}), num_verts_encoder=300)
+    cfg = dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)), **{knob: value},
+                              **({"sh_degree": 1} if knob == "rgb" else {}))
+    model = AudioDrivenAvatar(cfg, num_verts_encoder=300 + 512)
+    tree = _jax_tree(True, **{knob: value}, **({"sh_degree": 1} if knob == "rgb" else {}))
+    model.triplane_gaussian.load_state_dict(params_from_flax(tree), strict=True)
+    tg = model.triplane_gaussian
+    assert hasattr(tg.renderer, "upsampler") == cfg.upsample_triplane
+    assert hasattr(tg.smplx_triplane_encoder, "triplane_downsampler") == \
+        cfg.upsample_triplane_encoder
+    assert tg.renderer.shs_layer.out_features == (3 if cfg.rgb else 12)
 
 
 @pytest.mark.parametrize("conv", ["winograd", "winograd_gn", "fft"])
@@ -254,8 +295,9 @@ def test_serving_rollout_from_reference_frames_matches_jax():
     args = (jref.video, jref.smpl_parms, jref.cam_parms, jtgt.audio_features, jtgt.cam_parms)
     params = random_params(model, 52, *args, method=demo)
     params = _perturb_serving(params)
+    fwd = jax.jit(lambda p, *a: model.apply({"params": p}, *a, method=demo))
     tri, smpl, image_tokens, (frames, _, _, _) = jax.tree_util.tree_map(
-        np.asarray, model.apply({"params": params}, *args, method=demo))
+        np.asarray, fwd.lower(params, *args).compile(compiler_options=FAST_COMPILE)(params, *args))
 
     pcfg = serving_config(AvatarConfig.tiny(image_size=(32, 32)), **over)
     roll = build_rollout(pcfg, device="cpu", stage1=True,

@@ -24,6 +24,7 @@ from audio_motion_avatar_tpu_torch.ops import splat_segmented as tss
 from audio_motion_avatar_tpu_torch.ops.cameras import make_camera as tmake_camera
 
 from splat_segment_cases import edge_segments
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def gaussians(n, seed, frames=1):

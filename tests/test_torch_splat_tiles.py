@@ -22,6 +22,7 @@ from audio_motion_avatar_tpu.ops import splat_pallas as jsp
 from audio_motion_avatar_tpu_torch.ops import splat as tsplat
 from audio_motion_avatar_tpu_torch.ops import splat_tiles as tst
 from test_torch_splat import gaussians, jax_proj, torch_proj_from
+from torch_parity import one_torch_thread  # noqa: F401
 
 W = H = 64
 TX = W // 16

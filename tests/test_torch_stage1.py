@@ -37,7 +37,7 @@ from audio_motion_avatar_tpu_torch.ops import smplx as tsmplx
 from audio_motion_avatar_tpu_torch.ops import subdivision as tsub
 from audio_motion_avatar_tpu_torch.ops import triplane as ttp
 from audio_motion_avatar_tpu_torch.utils import losses as tloss
-from torch_parity import load_flax, random_params, t
+from torch_parity import load_flax, one_torch_thread, random_params, t  # noqa: F401
 
 
 def body_points(B=2, n=500, seed=0):
@@ -259,8 +259,32 @@ def test_smplx_triplane_encoder_matches_jax(gt_params):
 
 
 def test_encoder_upsample_path_raises():
-    with pytest.raises(NotImplementedError, match="upsample_triplane_encoder"):
-        tte.SMPLXTriplaneEncoder(100, upsample_triplane=True)
+    """The encoder-side upsample path (upsample_triplane_encoder, refused
+    before it was ported) builds and equals the JAX encoder's: pooling and
+    the scatter mean at 3R = 24^2, then the TriplaneDownsampler back to R."""
+    B, T, H, W = 1, 1, 32, 32
+    jmodel = jsmplx.synthetic_model(seed=0, num_verts=300)
+    nverts = 300 + np.asarray(jmodel.faces).shape[0]
+    batch = make_batch(B, T, (H, W), seed=27)
+    tokens = np.random.RandomState(28).randn(B, T, 64, 48).astype(np.float32)
+    feats = np.random.RandomState(29).randn(B * T, 128, H, W).astype(np.float32)
+    jmod = jte.SMPLXTriplaneEncoder(num_verts=nverts, upsample_triplane=True, **ENC)
+    jargs = (jmodel, jnp.asarray(tokens), {k: jnp.asarray(v) for k, v in batch.cam_parms.items()},
+             {k: jnp.asarray(v) for k, v in batch.smpl_parms.items()}, jnp.asarray(feats))
+    params = random_params(jmod, 30, *jargs)
+    assert "triplane_downsampler" in params
+    fast = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+    fwd = jax.jit(lambda p, *a: jmod.apply({"params": p}, jmodel, *a))
+    want = fwd.lower(params, *jargs[1:]).compile(compiler_options=fast)(params, *jargs[1:])
+    tmod = load_flax(tte.SMPLXTriplaneEncoder(nverts, upsample_triplane=True, **ENC), params)
+    tmodel = tsmplx.as_tensors(tsmplx.synthetic_model(seed=0, num_verts=300), "cpu")
+    with torch.no_grad():
+        got = tmod(tmodel, t(tokens), {k: t(v) for k, v in batch.cam_parms.items()},
+                   {k: t(v) for k, v in batch.smpl_parms.items()}, t(feats))
+    assert got[0].shape == (B, T, 3, 32, 8, 8)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-4, rtol=0)
+    assert np.abs(np.asarray(want[0])).max() > 0
 
 
 def test_fusion_network_matches_jax():

@@ -48,7 +48,7 @@ from audio_motion_avatar_tpu_torch.ops import smplx as tsmplx
 from audio_motion_avatar_tpu_torch.train import build_trainer
 from audio_motion_avatar_tpu_torch.training.train_state import OptimConfig
 from audio_motion_avatar_tpu_torch.weights import params_from_flax
-from torch_parity import random_params
+from torch_parity import one_torch_thread, random_params  # noqa: F401
 
 SIZE = (32, 32)
 LR = 1e-3

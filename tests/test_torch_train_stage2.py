@@ -47,7 +47,7 @@ from audio_motion_avatar_tpu_torch.training.train_state import OptimConfig, Trai
 from audio_motion_avatar_tpu_torch.weights import params_from_flax
 from test_torch_train_stage1 import (FAST_COMPILE, leaves_close, params_close,
                                      recording, visible)
-from torch_parity import random_params
+from torch_parity import one_torch_thread, random_params  # noqa: F401
 
 SIZE = (32, 32)
 LR = 1e-3

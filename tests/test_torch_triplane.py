@@ -17,6 +17,7 @@ from audio_motion_avatar_tpu.ops import triplane as jtp
 
 from audio_motion_avatar_tpu_torch.models import upsampler as tup
 from audio_motion_avatar_tpu_torch.ops import triplane as ttp
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def selection(FP=4, n=400, grid=8, cap=20, tile_px=16, seed=0):

@@ -25,7 +25,7 @@ from audio_motion_avatar_tpu.ops import winograd as JW
 
 import chip_smoke
 from audio_motion_avatar_tpu_torch.ops import winograd as W
-from torch_parity import t
+from torch_parity import one_torch_thread, t  # noqa: F401
 
 SHAPES = [("SAME", (2, 16, 16, 128)), ("SAME", (1, 32, 8, 128)),
           ("VALID", (3, 18, 18, 128)), ("VALID", (2, 10, 18, 128))]

@@ -30,7 +30,8 @@ from audio_motion_avatar_tpu_torch.ops import smplx as torch_smplx
 from audio_motion_avatar_tpu_torch.ops import winograd as W
 from audio_motion_avatar_tpu_torch.serve import build_rollout
 from audio_motion_avatar_tpu_torch.weights import params_from_flax
-from torch_parity import jax_serving_avatar, load_flax, random_params, t
+from torch_parity import (jax_serving_avatar, load_flax, one_torch_thread,  # noqa: F401
+                          random_params, t)
 
 
 @pytest.mark.parametrize("conv_impl", ["winograd", "winograd_gn"])

@@ -73,7 +73,8 @@ def jax_serving_avatar(smplx_model, **overrides):
                                      densify=cfg.densify_smplx_verts)
     nverts = int(smplx_model.v_template.shape[0]) + int(np.asarray(smplx_model.faces).shape[0])
     model = AudioDrivenAvatar(cfg=cfg, num_verts_encoder=nverts,
-                              point_refiner=build_point_refiner(cfg))
+                              point_refiner=None if cfg.no_point_refiner
+                              else build_point_refiner(cfg))
 
     def chunk(mdl, tri, smpl, aud, cam, render=True):
         out_tri, out_smpl = mdl.audio_triplane(aud, tri, smpl)
