@@ -99,14 +99,18 @@ def _checked(item):
 class NativePrefetcher:
     """Iterate `dataset` with `num_workers` C++ threads producing ahead,
     bounded by `capacity`. Yields items in completion order (training
-    consumes them in any order); an item whose read raised raises when its
-    turn comes. `ring` is "native", or "threads" when the library could not
-    be built or loaded (`error` says why)."""
+    consumes them in any order), or in index order with `ordered` (the data
+    ranks of a mesh, whose steps must read the same global batch); an item
+    whose read raised raises when its turn comes. `ring` is "native", or
+    "threads" when the library could not be built or loaded (`error` says
+    why)."""
 
-    def __init__(self, dataset, num_workers: int = 2, capacity: int = 4):
+    def __init__(self, dataset, num_workers: int = 2, capacity: int = 4,
+                 ordered: bool = False):
         self.dataset = dataset
         self.num_workers = num_workers
         self.capacity = capacity
+        self.ordered = ordered
         try:
             self.lib, self.error = _load_lib(), None
         except OSError as e:
@@ -125,10 +129,22 @@ class NativePrefetcher:
         return len(self.dataset)
 
     def __iter__(self) -> Iterator:
-        if self.lib is None:
-            yield from self._python_fallback()
-            return
+        pairs = self._python_fallback() if self.lib is None else self._native()
+        try:
+            pending, want = {}, 0
+            for index, item in pairs:
+                if not self.ordered:
+                    yield _checked(item)
+                    continue
+                pending[index] = item
+                while want in pending:
+                    yield _checked(pending.pop(want))
+                    want += 1
+        finally:
+            pairs.close()
 
+    def _native(self) -> Iterator:
+        """(index, item) pairs from the ring, in completion order."""
         registry = {}
         reg_lock = threading.Lock()
         counter = [1]
@@ -152,7 +168,7 @@ class NativePrefetcher:
                     break
                 with reg_lock:
                     item = registry.pop(token)
-                yield _checked(item)
+                yield int(idx.value), item
         finally:
             self.lib.ring_destroy(ring)
 
@@ -163,7 +179,7 @@ class NativePrefetcher:
 
         def worker(worker_id):
             for i in range(worker_id, n, self.num_workers):
-                q.put(self._read(i))
+                q.put((i, self._read(i)))
             q.put(SENTINEL)
 
         threads = [threading.Thread(target=worker, args=(w,), daemon=True)
@@ -176,11 +192,12 @@ class NativePrefetcher:
             if item is SENTINEL:
                 done += 1
                 continue
-            yield _checked(item)
+            yield item
 
 
-def maybe_prefetch(dataset, num_workers: int = 0, capacity: int = 4):
+def maybe_prefetch(dataset, num_workers: int = 0, capacity: int = 4,
+                   ordered: bool = False):
     """num_workers = 0 -> the dataset itself (the reference default)."""
     if num_workers <= 0:
         return dataset
-    return NativePrefetcher(dataset, num_workers, capacity)
+    return NativePrefetcher(dataset, num_workers, capacity, ordered)

@@ -3,7 +3,10 @@ package's main.py).
 
     python -m audio_motion_avatar_tpu_torch.main --config <yaml> \
         --mode train|test|predict [--checkpoint DIR|FILE] [--resume] \
-        [--device cuda|cpu] [overrides a.b=c ...]
+        [--device cuda|cuda:N|cpu] [--dist-backend nccl|gloo] [overrides a.b=c ...]
+
+    torchrun --nproc_per_node N -m audio_motion_avatar_tpu_torch.main ... \
+        training.devices=D training.model_parallel=M      (D x M = N)
 
 train runs training/trainer.Trainer.fit over the dataset's train and val
 splits (the train, eval and render functions of training/stage1.py); test
@@ -15,9 +18,17 @@ card, cuda raises. --checkpoint DIR restores a
 training/checkpoints.CheckpointManager directory; --checkpoint FILE imports
 a reference Lightning .ckpt (training/torch_import.py: every structurally
 identical module, non-strict; the upsampler norm defaults to 'affine' for
-its folded BatchNorms). Multi-host or multi-device runs (ROADMAP.md
-section 1 item 7) are refused. `build_body`, `build_everything` and
+its folded BatchNorms). `build_body`, `build_everything` and
 `load_checkpoint` are shared with main2.
+
+Several processes, one a card (torchrun's variables, or the JAX package's
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
+training.multihost; parallel/distributed.py), run one
+('data', 'model') mesh of training.devices x training.model_parallel
+(parallel/mesh.py): the train split's global batch split over 'data', the
+annotated layers over 'model'; rank 0 writes the files. --dist-backend gloo
+joins over gloo with CUDA tensors (several ranks on one card; NCCL
+refuses that), nccl is the card's default and gloo the CPU's.
 """
 
 from __future__ import annotations
@@ -30,8 +41,6 @@ from .device import resolve_device
 from .models.config import AvatarConfig
 from .ops import smplx as smplx_ops
 
-from .training.trainer import PARALLEL_ITEM
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Stage 1: triplane avatar reconstruction")
@@ -43,33 +52,42 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default) or cpu: the plain versions of the kernels")
+                   help="cuda (default; cuda:LOCAL_RANK in a multi-process run), "
+                        "cuda:N, or cpu: the plain versions of the kernels")
+    p.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="a multi-process run's backend (default nccl on the card, "
+                        "gloo on the CPU)")
     p.add_argument("overrides", nargs="*", help="dotted config overrides a.b=c")
     return p.parse_args(argv)
 
 
 def setup_output_dirs(cfg):
     """The run's output directories, and the merged config written there as
-    config.yaml."""
+    config.yaml (by rank 0 of a multi-process run)."""
     from .configs import yaml_subset
+    from .parallel.distributed import is_main
     out = cfg.training.output_dir
     for sub in ("checkpoints", "train_images", "test_images", "target_images"):
         os.makedirs(os.path.join(out, sub), exist_ok=True)
-    with open(os.path.join(out, "config.yaml"), "w") as f:
-        f.write(yaml_subset.dump(cfg.to_dict()))
+    if is_main():
+        with open(os.path.join(out, "config.yaml"), "w") as f:
+            f.write(yaml_subset.dump(cfg.to_dict()))
     return out
 
 
-def refuse_multihost(cfg) -> None:
-    """The JAX CLIs initialize a multi-process runtime when the config or
-    the environment asks for one; the port has none yet."""
-    want = os.environ.get("AMA_MULTIHOST", "") not in ("", "0", "false")
-    want = want or bool(os.environ.get("JAX_COORDINATOR_ADDRESS"))
-    training = cfg.get("training") or {}
-    if want or bool(training.get("multihost", False)):
-        raise NotImplementedError(
-            f"a multi-host run (training.multihost, AMA_MULTIHOST or "
-            f"JAX_COORDINATOR_ADDRESS) is not ported yet: {PARALLEL_ITEM}")
+def start_processes(cfg, args, with_mesh: bool = True):
+    """The multi-process runtime (parallel/distributed.maybe_initialize,
+    binding --device and --dist-backend) and, with_mesh, the run's mesh
+    (None without)."""
+    from .parallel.distributed import is_main, maybe_initialize, world_size
+    from .parallel.mesh import mesh_from_config
+    maybe_initialize(cfg, backend=args.dist_backend, device=args.device)
+    if not with_mesh:
+        return None
+    mesh, world = mesh_from_config(cfg), world_size()
+    if is_main():
+        print(f"[mesh] {mesh} over {world} process{'es' if world > 1 else ''}")
+    return mesh
 
 
 def load_checkpoint(path: str, state, ac: AvatarConfig, stage: int, tag: str):
@@ -85,7 +103,7 @@ def load_checkpoint(path: str, state, ac: AvatarConfig, stage: int, tag: str):
         return state
     from .training.torch_import import import_reference_checkpoint, merge_into
     partial, report = import_reference_checkpoint(path, ac, stage=stage)
-    mismatches = merge_into(state.model, partial)
+    mismatches = merge_into(state.model, partial, shard=state.shard)
     print(f"[{tag}] torch import: {report['loaded']} tensors from "
           f"{report['total_torch_modules']} torch modules; "
           f"skipped={sorted(report['skipped_modules'])[:8]}"
@@ -126,12 +144,16 @@ def build_everything(cfg, device=None):
     return model.to(device).eval(), statics, ac
 
 
-def init_state(model, cfg):
-    """The train state around the model: the optimizer of the YAML's
-    training section over every parameter but the frozen ViT."""
+def init_state(model, cfg, mesh=None):
+    """The train state around the model (sharded over the mesh's 'model'
+    axis first): the optimizer of the YAML's training section over every
+    parameter but the frozen ViT."""
     from .configs.build import build_optim_config
+    from .parallel.mesh import shard_model
     from .training.train_state import TrainState
-    return TrainState(model, build_optim_config(cfg))
+    if mesh is not None:
+        shard_model(model, mesh)
+    return TrainState(model, build_optim_config(cfg), mesh=mesh)
 
 
 def main(argv=None):
@@ -144,13 +166,12 @@ def main(argv=None):
     from .data.factory import DatasetFactory
     from .serve import check_kernel_dtype
     from .training import stage1
-    from .training.trainer import Trainer, refuse_parallel
+    from .training.trainer import Trainer
 
     args = parse_args(argv)
     cfg = ConfigLoader.load_config(args.config, args.overrides)
-    refuse_multihost(cfg)
+    mesh = start_processes(cfg, args)
     cfg = default_affine_norm_for_import(cfg, args.checkpoint)
-    refuse_parallel(cfg)
     device = resolve_device(args.device)
 
     np.random.seed(int(cfg.get("seed", 42)))
@@ -158,13 +179,15 @@ def main(argv=None):
 
     check_kernel_dtype(build_avatar_config(cfg), device, stage1=True)
     model, statics, ac = build_everything(cfg, device)
-    state = init_state(model, cfg)
-    train_data = DatasetFactory.create_dataloader(cfg, split="train", device=device)
+    state = init_state(model, cfg, mesh)
+    train_data = DatasetFactory.create_dataloader(cfg, split="train", device=device,
+                                                  mesh=mesh)
     val_data = DatasetFactory.create_dataloader(cfg, split="val", device=device)
 
     trainer = Trainer(cfg, stage1.make_train_step(model, statics, ac),
                       stage1.make_eval_step(model, statics, ac),
-                      render_fn=stage1.make_render_fn(model, statics), device=device)
+                      render_fn=stage1.make_render_fn(model, statics), device=device,
+                      mesh=mesh)
     if args.checkpoint:
         state = load_checkpoint(args.checkpoint, state, ac, 1, "main")
 

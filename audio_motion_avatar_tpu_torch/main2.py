@@ -3,7 +3,8 @@ package's main2.py).
 
     python -m audio_motion_avatar_tpu_torch.main2 --config <yaml> \
         --mode train|test|demo [--checkpoint DIR|FILE] [--resume] [--audio x.wav] \
-        [--output x.mp4] [--prewarm] [--device cuda|cpu] [overrides a.b=c ...]
+        [--output x.mp4] [--prewarm] [--device cuda|cuda:N|cpu] \
+        [--dist-backend nccl|gloo] [overrides a.b=c ...]
 
 Train: the dataset's train split through training/stage2.Stage2TrainLoop
 (the prediction cache at training.cache_replacement_prob), the metrics and
@@ -32,8 +33,15 @@ the override model.compute_dtype=bfloat16 (kernel A takes bf16).
 --checkpoint DIR restores a training/checkpoints.CheckpointManager
 directory; --checkpoint FILE imports the released full reference .ckpt
 (`triplane_gaussian.*` and `audio_triplane.*`, training/torch_import.py).
-Not ported yet, and refused: multi-host runs and training.devices or
-training.model_parallel above 1 (ROADMAP.md section 1 item 7).
+
+Several processes, one a card (torchrun --nproc_per_node N, the JAX
+package's JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID,
+or training.multihost; see main.py): train runs the
+('data', 'model') mesh of training.devices x training.model_parallel, each
+data rank on its rows of the global batch, the prediction cache synced
+over 'data' every step; rank 0 writes the event files, the PNGs and the
+checkpoints (the full tree). test and demo run whole on every process,
+rank 0 writing the files.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .main import build_body, load_checkpoint, refuse_multihost
+from .main import build_body, load_checkpoint, start_processes
+from .parallel.distributed import is_main
 
 
 def parse_args(argv=None):
@@ -65,7 +74,11 @@ def parse_args(argv=None):
                         "start) and run one rollout, then exit")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default) or cpu: the plain versions of the kernels")
+                   help="cuda (default; cuda:LOCAL_RANK in a multi-process run), "
+                        "cuda:N, or cpu: the plain versions of the kernels")
+    p.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="a multi-process run's backend (default nccl on the card, "
+                        "gloo on the CPU)")
     p.add_argument("overrides", nargs="*")
     return p.parse_args(argv)
 
@@ -79,12 +92,12 @@ def build_stage2(cfg, ac, device):
                          smplx_model=build_body(cfg, ac), seed=0, stage1=True)
 
 
-def init_state2(model, cfg):
-    """The train state around the model (its optimizer from the YAML), into
-    which a checkpoint restores."""
-    from .configs.build import build_optim_config
-    from .training.train_state import TrainState
-    return TrainState(model, build_optim_config(cfg))
+def init_state2(model, cfg, mesh=None):
+    """The train state around the model (sharded over the mesh's 'model'
+    axis first; its optimizer from the YAML), into which a checkpoint
+    restores."""
+    from .main import init_state
+    return init_state(model, cfg, mesh)
 
 
 def _stack_batches(a, b):
@@ -305,10 +318,13 @@ def run_demo(cfg, rollout, ac, audio_path, output_path, prewarm: bool = False
 
     mux = audio_path if audio_path and os.path.exists(audio_path) else None
     out = output_path or os.path.join(out_dir, "original_sequence.mp4")
-    write_frames(combined, os.path.join(out_dir, "frames"))
-    mp4 = {"original": write_mp4(combined, out, fps=fps, audio_path=mux),
-           "smplx": write_mp4(combined_smplx, os.path.join(out_dir, "smplx_sequence.mp4"),
-                              fps=fps, audio_path=mux)}
+    mp4 = {"original": None, "smplx": None}
+    if is_main():
+        write_frames(combined, os.path.join(out_dir, "frames"))
+        mp4 = {"original": write_mp4(combined, out, fps=fps, audio_path=mux),
+               "smplx": write_mp4(combined_smplx,
+                                  os.path.join(out_dir, "smplx_sequence.mp4"),
+                                  fps=fps, audio_path=mux)}
     clock.lap("writing")
     print(f"[demo] wrote {len(combined)} frames -> {out} (+smplx_sequence)")
     return {"output": out, "frames": len(combined), "overlays": len(combined_smplx),
@@ -316,10 +332,11 @@ def run_demo(cfg, rollout, ac, audio_path, output_path, prewarm: bool = False
             "seconds": clock.seconds, "chunk_seconds": chunk_seconds}
 
 
-def run_train(cfg, rollout, state, resume: bool = False) -> dict:
-    """--mode train (see the module docstring). Returns the steps' metrics
-    (the cache depth as `cache_iter`) and seconds, each step timed until its
-    metrics are read back (a read that waits for the card)."""
+def run_train(cfg, rollout, state, resume: bool = False, mesh=None) -> dict:
+    """--mode train (see the module docstring) over `mesh` (state's model
+    sharded over it). Returns the steps' metrics (the cache depth as
+    `cache_iter`) and seconds, each step timed until its metrics are read
+    back (a read that waits for the card)."""
     from .data.factory import DatasetFactory
     from .data.synthetic import to_device
     from .training.checkpoints import CheckpointManager
@@ -327,10 +344,12 @@ def run_train(cfg, rollout, state, resume: bool = False) -> dict:
     from .training.trainer import MetricLogger, save_comparison_image
 
     device, model, statics = rollout.device, rollout.model, rollout.statics
-    train_data = DatasetFactory.create_dataloader(cfg, split="train", device=device)
+    train_data = DatasetFactory.create_dataloader(cfg, split="train", device=device,
+                                                  mesh=mesh)
     loop = Stage2TrainLoop(
         model, statics, model.cfg,
-        replacement_prob=float(cfg.training.get("cache_replacement_prob", 0.0)))
+        replacement_prob=float(cfg.training.get("cache_replacement_prob", 0.0)),
+        mesh=mesh)
     fast = bool(cfg.training.get("fast_dev_run"))
     max_epochs = 1 if fast else int(cfg.training.max_epochs)
     out_dir = cfg.training.output_dir
@@ -343,7 +362,7 @@ def run_train(cfg, rollout, state, resume: bool = False) -> dict:
             state, ok = ckpt_mgr.restore(state)
             print(f"[main2] resume: {'ok' if ok else 'no checkpoint'}")
     logger = MetricLogger(
-        os.path.join(out_dir, "tb"),
+        os.path.join(out_dir, "tb"), use_tb=is_main(),
         use_wandb=bool(cfg.training.get("logging", {}).get("use_wandb", False)))
     log_every = int(cfg.training.get("logging", {}).get("log_every_n_steps", 10))
     image_every = 1 if fast else 200
@@ -361,9 +380,10 @@ def run_train(cfg, rollout, state, resume: bool = False) -> dict:
             metrics.update(cache_depth_channels(metrics["l1_target"], depth))
             if step % log_every == 0:
                 logger.log(step, metrics, "train")
-                print(f"[e{epoch} s{step}] " + " ".join(
-                    f"{k}={v:.4f}" for k, v in metrics.items() if not np.isnan(v)))
-            if step % image_every == 0:
+                if is_main():
+                    print(f"[e{epoch} s{step}] " + " ".join(
+                        f"{k}={v:.4f}" for k, v in metrics.items() if not np.isnan(v)))
+            if step % image_every == 0 and is_main():
                 save_comparison_image(
                     os.path.join(images, f"audio_comparison_{step}_iter{depth}.png"),
                     loop.last_rendered[0].float().cpu().numpy(),
@@ -403,7 +423,7 @@ def run_test(cfg, rollout) -> dict:
         rendered, _, _ = pred(ref, tgt)
         tgt_hwc = tgt.video.permute(0, 1, 3, 4, 2)
         tot += float(L.l1_loss(rendered, tgt_hwc))
-        if n < 4:
+        if n < 4 and is_main():
             save_comparison_image(os.path.join(out_dir, f"audio_comparison_{n}.png"),
                                   rendered[0].float().cpu().numpy(),
                                   tgt_hwc[0].float().cpu().numpy())
@@ -423,10 +443,7 @@ def main(argv=None):
     from .device import resolve_device
 
     cfg = ConfigLoader.load_config(args.config, args.overrides)
-    refuse_multihost(cfg)
-    if args.mode == "train":
-        from .training.trainer import refuse_parallel
-        refuse_parallel(cfg)
+    mesh = start_processes(cfg, args, with_mesh=args.mode == "train")
     cfg = default_affine_norm_for_import(cfg, args.checkpoint)
     device = resolve_device(args.device)
 
@@ -438,11 +455,11 @@ def main(argv=None):
         # inference only: the serving profile's knobs unless the YAML names them
         ac = apply_serving_profile(ac, cfg)
     rollout = build_stage2(cfg, ac, device)
-    state = init_state2(rollout.model, cfg)
+    state = init_state2(rollout.model, cfg, mesh)
     if args.checkpoint:
         state = load_checkpoint(args.checkpoint, state, ac, 2, "main2")
     if args.mode == "train":
-        return run_train(cfg, rollout, state, resume=args.resume)
+        return run_train(cfg, rollout, state, resume=args.resume, mesh=mesh)
     if args.mode == "test":
         return run_test(cfg, rollout)
     if device.type == "cuda":

@@ -24,8 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import ModelAxis, copy_to_model
 from .ptv3 import _PatchAttention
-from .transformer import LayerNorm, linear
+from .transformer import LayerNorm, linear, row_linear
 
 SAPIENS_MEAN = (0.4844, 0.4570, 0.4062)
 SAPIENS_STD = (0.2295, 0.2236, 0.2256)
@@ -76,7 +77,10 @@ def preprocess(images: torch.Tensor, resolution: int) -> torch.Tensor:
 
 class ViTBlock(nn.Module):
     """Pre-LN block: fp32 LayerNorm -> patch attention -> residual; fp32
-    LayerNorm -> MLP with exact GELU -> residual."""
+    LayerNorm -> MLP with exact GELU -> residual; tp: the attention's heads
+    and the MLP pair's hidden width sharded over 'model'."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, width: int, heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -89,8 +93,8 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        h = F.gelu(linear(self.ln2(x), self.mlp1, self.dtype))
-        return x + linear(h, self.mlp2, self.dtype)
+        h = F.gelu(linear(copy_to_model(self.ln2(x), self.tp), self.mlp1, self.dtype))
+        return x + row_linear(h, self.mlp2, self.dtype, self.tp)
 
 
 class VisionTransformer(nn.Module):

@@ -11,6 +11,11 @@ Argsorts are stable and codes int32, as the JAX package's.
 Patch attention with head width 64 (the decoder's first stage at serving
 widths) runs through kernel A with a key mask; narrower heads use the dense
 chain in the compute dtype, as the JAX package does.
+
+Tensor parallelism (parallel/mesh.shard_model): the patch attention splits
+its heads over 'model' (query / key / value column-parallel with their
+biases, out row-parallel) and the MLP pair its hidden width, as the JAX
+package annotates them ('heads', 'mlp').
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from torch import nn
 
 from ..ops import serialization as ser
 from ..ops.attention import KERNEL_HEAD_DIM, dense_attention
-from .transformer import LayerNorm, head_attention, linear, merge_heads, split_heads
+from ..parallel.tensor import ModelAxis, copy_to_model
+from .transformer import (LayerNorm, head_attention, linear, merge_heads, row_linear,
+                          split_heads)
 
 POOL_WINDOW = 4
 PAD_CODE = 2 ** 30
@@ -75,11 +82,14 @@ class _SerialCpe(nn.Module):
 
 
 class _PatchAttention(nn.Module):
-    """flax MultiHeadDotProductAttention over patches, with biases."""
+    """flax MultiHeadDotProductAttention over patches, with biases. Sharded
+    over 'model' (tp), it holds heads / n heads."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, dim: int, heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.heads, self.dtype = heads, dtype
+        self.heads, self.head_dim, self.dtype = heads, dim // heads, dtype
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
@@ -88,20 +98,25 @@ class _PatchAttention(nn.Module):
     def forward(self, hq: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """hq (G, P, C), mask (G, P) bool valid keys -> (G, P, C)."""
-        q = split_heads(linear(hq, self.query, self.dtype), self.heads)
-        k = split_heads(linear(hq, self.key, self.dtype), self.heads)
-        v = split_heads(linear(hq, self.value, self.dtype), self.heads)
+        hq = copy_to_model(hq, self.tp)
+        heads = self.query.weight.shape[0] // self.head_dim      # this rank's
+        q = split_heads(linear(hq, self.query, self.dtype), heads)
+        k = split_heads(linear(hq, self.key, self.dtype), heads)
+        v = split_heads(linear(hq, self.value, self.dtype), heads)
         D = q.shape[-1]
         if D == KERNEL_HEAD_DIM:
             out = head_attention(q, k, v, D ** -0.5, mask)
         else:
             out = dense_attention(q / torch.tensor(math.sqrt(D), dtype=q.dtype),
                                   k, v, 1.0, mask)
-        return linear(merge_heads(out), self.out, self.dtype)
+        return row_linear(merge_heads(out), self.out, self.dtype, self.tp)
 
 
 class SerialBlock(nn.Module):
-    """xCPE + patch attention + MLP, pre-LN, masked residuals."""
+    """xCPE + patch attention + MLP, pre-LN, masked residuals; tp: the MLP
+    pair's hidden width sharded over 'model'."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, dim: int, heads: int, patch_size: int,
                  dtype: Optional[torch.dtype] = None, gelu_approx: bool = False):
@@ -126,8 +141,9 @@ class SerialBlock(nn.Module):
         attn = self.attn(h.reshape(B * g, p, C),
                          mask.reshape(1, g, p).expand(B, g, p).reshape(B * g, p))
         x = x + attn.reshape(B, N, C) * m
-        h = linear(self.ln2(x), self.mlp1, self.dtype)
-        h = linear(F.gelu(h, approximate=self.approximate), self.mlp2, self.dtype)
+        h = linear(copy_to_model(self.ln2(x), self.tp), self.mlp1, self.dtype)
+        h = row_linear(F.gelu(h, approximate=self.approximate), self.mlp2, self.dtype,
+                       self.tp)
         return x + h * m
 
 

@@ -14,6 +14,12 @@ flash kernel, its base-2 clone flash2, the stock splash kernel (FullMask,
 padding by segment ids, q pre-scaled) and its own serve / hpack kernels.
 Each computes softmax((q scale) k^T) v over the valid keys, kernel A's
 function, so every name runs kernel A here; only 'flash' has a backward.
+
+Tensor parallelism (parallel/mesh.shard_model): Attention splits its heads
+over the 'model' axis (q / k / v column-parallel, out row-parallel) and
+GEGLUFeedForward its hidden width (wi column-parallel, each rank holding
+the matching columns of both the h and the gate halves; wo row-parallel),
+the layers the JAX package annotates ('heads', 'mlp').
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import KERNEL_HEAD_DIM, attention_autograd, dense_attention
+from ..parallel.tensor import ModelAxis, copy_to_model, reduce_from_model
 
 ATTN_IMPLS = ("flash", "flash2", "splash", "serve", "hpack")
 FORWARD_ONLY_ATTN_IMPLS = ("flash2", "splash", "serve", "hpack")
@@ -45,6 +52,21 @@ def linear(x: torch.Tensor, layer: nn.Linear,
         return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_linear(x: torch.Tensor, layer: nn.Linear, dtype: Optional[torch.dtype],
+               tp: Optional[ModelAxis]) -> torch.Tensor:
+    """`linear` of a row-parallel layer: this rank's columns contracted in
+    float32 on operands rounded to the compute dtype (the partial sums are
+    not rounded before the reduce: the whole product rounds once, as it does
+    in one process), reduced over 'model', the bias added once."""
+    if tp is None:
+        return linear(x, layer, dtype)
+    w = layer.weight if dtype is None else layer.weight.to(dtype)
+    y = reduce_from_model(F.linear(x.to(w.dtype).float(), w.float()), tp)
+    if layer.bias is not None:
+        y = y + layer.bias
+    return y.to(x.dtype if dtype is None else dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -89,7 +111,10 @@ def head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class Attention(nn.Module):
     """Multi-head attention (no qkv bias, biased output projection,
     scale head_dim**-0.5), optionally cross (kv from `context`).
-    q_tail: compute only the last q_tail query positions."""
+    q_tail: compute only the last q_tail query positions. Sharded over
+    'model' (tp), it holds heads / n heads."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, query_dim: int, heads: int, head_dim: int, out_dim: int,
                  context_dim: Optional[int] = None,
@@ -107,23 +132,30 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        kv_src = x if context is None else context
+        tp = self.tp
+        x = copy_to_model(x, tp)
+        kv_src = x if context is None else copy_to_model(context, tp)
         if kv_src.shape[1] == 1:
             # EXACT single-key shortcut: softmax over one key is 1, so every
             # query's output is that key's projected value
             q_len = x.shape[1] if self.q_tail is None else self.q_tail
-            out1 = linear(linear(kv_src, self.v, self.dtype), self.out, self.dtype)
+            out1 = row_linear(linear(kv_src, self.v, self.dtype), self.out, self.dtype, tp)
             return out1.expand(x.shape[0], q_len, out1.shape[-1])
+        heads = self.q.weight.shape[0] // self.head_dim          # this rank's
         xq = x if self.q_tail is None else x[:, -self.q_tail:]
-        q = split_heads(linear(xq, self.q, self.dtype), self.heads)
-        k = split_heads(linear(kv_src, self.k, self.dtype), self.heads)
-        v = split_heads(linear(kv_src, self.v, self.dtype), self.heads)
+        q = split_heads(linear(xq, self.q, self.dtype), heads)
+        k = split_heads(linear(kv_src, self.k, self.dtype), heads)
+        v = split_heads(linear(kv_src, self.v, self.dtype), heads)
         out = head_attention(q, k, v, self.head_dim ** -0.5)
-        return linear(merge_heads(out), self.out, self.dtype)
+        return row_linear(merge_heads(out), self.out, self.dtype, tp)
 
 
 class GEGLUFeedForward(nn.Module):
-    """proj to 2 * mult * dim, split, x * gelu(gate), project back."""
+    """proj to 2 * mult * dim, split, x * gelu(gate), project back. Sharded
+    over 'model' (tp), wi holds this rank's columns of h, then the same
+    columns of gate, and wo the matching rows."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, dim: int, mult: int = 4,
                  dtype: Optional[torch.dtype] = None, gelu_approx: bool = False):
@@ -134,9 +166,9 @@ class GEGLUFeedForward(nn.Module):
         self.approximate = "tanh" if gelu_approx else "none"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, gate = linear(x, self.wi, self.dtype).chunk(2, dim=-1)
+        h, gate = linear(copy_to_model(x, self.tp), self.wi, self.dtype).chunk(2, dim=-1)
         h = h * F.gelu(gate, approximate=self.approximate)
-        return linear(h, self.wo, self.dtype)
+        return row_linear(h, self.wo, self.dtype, self.tp)
 
 
 class TransformerBlock(nn.Module):

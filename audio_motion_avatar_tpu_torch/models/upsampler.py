@@ -34,6 +34,8 @@ from torch import nn
 
 from ..ops import winograd
 from ..ops.splat_segmented import top_k_lower_index
+from ..parallel.tensor import (ModelAxis, copy_to_model, gather_from_model, local_part,
+                               reduce_from_model)
 
 CONV_IMPLS = ("xla", "winograd", "winograd_gn")
 
@@ -61,8 +63,8 @@ class SparseCtx(NamedTuple):
     c1_cols: torch.Tensor    # (F, cap, T+2)
 
 
-def _cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    return t if dtype is None else t.to(dtype)
+def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return t if dtype is None or t is None else t.to(dtype)
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -183,6 +185,14 @@ class _NormParams(nn.Module):
 
 
 class ResBlock(nn.Module):
+    """relu(norm1) -> conv1 -> relu(norm2) -> conv2, plus the input. Sharded
+    over 'model' (tp; the direct convs only, the Winograd ones replicate as
+    the JAX package's _WinoConv does): the Megatron conv pair, conv1's
+    output channels and conv2's input channels this rank's, norm2 over its
+    whole groups (the shard boundaries fall on group boundaries)."""
+
+    tp: Optional[ModelAxis] = None
+
     def __init__(self, channels: int, dtype: Optional[torch.dtype] = None,
                  groups: int = 32, norm_mode: str = "group",
                  conv_impl: str = "xla"):
@@ -198,19 +208,36 @@ class ResBlock(nn.Module):
         self.norm2 = _NormParams(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3)
 
-    def _norm_relu(self, x: torch.Tensor, norm: _NormParams) -> torch.Tensor:
+    def _norm_params(self, norm: _NormParams, tp: Optional[ModelAxis]):
+        """(scale, bias, groups) over x's channels: tp, this rank's."""
+        groups = self.groups // (1 if tp is None else tp.size)
+        return local_part(norm.weight, tp), local_part(norm.bias, tp), groups
+
+    def _norm_relu(self, x: torch.Tensor, norm: _NormParams,
+                   tp: Optional[ModelAxis] = None) -> torch.Tensor:
+        scale, bias, groups = self._norm_params(norm, tp)
         if self.norm_mode == "affine":
-            return torch.relu(x * _cast(norm.weight, self.dtype)
-                              + _cast(norm.bias, self.dtype))
-        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.groups,
-                         norm.weight, norm.bias, eps=1e-6)
+            return torch.relu(x * _cast(scale, self.dtype) + _cast(bias, self.dtype))
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), groups, scale, bias, eps=1e-6)
         return torch.relu(_cast(y.permute(0, 2, 3, 1), self.dtype))
 
-    def _conv(self, x, conv: nn.Conv2d, padding: int, gn=None):
+    def _conv(self, x, conv: nn.Conv2d, padding: int, gn=None, part=None):
         """conv3x3 of x (N, H, W, C), SAME (padding 1) or VALID (0); gn =
-        (a, c): conv3x3(relu(a x + c)) (winograd_gn only)."""
+        (a, c): conv3x3(relu(a x + c)) (winograd_gn only). part: "column"
+        (conv1) or "row" (conv2), how the conv is split when sharded."""
         if self.conv_impl == "xla":
-            return conv_nhwc(x, conv.weight, conv.bias, padding, self.dtype)
+            tp = None if part is None else self.tp
+            if tp is None:
+                return conv_nhwc(x, conv.weight, conv.bias, padding, self.dtype)
+            if part == "column":
+                return conv_nhwc(copy_to_model(x, tp), conv.weight,
+                                 local_part(conv.bias, tp), padding, self.dtype)
+            # the partial sums in float32 on operands rounded to the compute
+            # dtype, rounded once after the reduce (row_linear's rule)
+            y = reduce_from_model(conv_nhwc(_cast(x, self.dtype).float(),
+                                            _cast(conv.weight, self.dtype).float(), None,
+                                            padding, None), tp)
+            return (y + conv.bias).to(x.dtype if self.dtype is None else self.dtype)
         w = _cast(conv.weight, self.dtype).permute(2, 3, 1, 0)     # HWIO
         return winograd.conv3x3(_cast(x, self.dtype), w, _cast(conv.bias, self.dtype),
                                 "SAME" if padding == 1 else "VALID", gn)
@@ -236,8 +263,8 @@ class ResBlock(nn.Module):
             h = self._gn_relu_conv(x, self.norm1, self.conv1)
             h = self._gn_relu_conv(h, self.norm2, self.conv2)
             return x + h
-        h = self._conv(self._norm_relu(x, self.norm1), self.conv1, 1)
-        h = self._conv(self._norm_relu(h, self.norm2), self.conv2, 1)
+        h = self._conv(self._norm_relu(x, self.norm1), self.conv1, 1, part="column")
+        h = self._conv(self._norm_relu(h, self.norm2, self.tp), self.conv2, 1, part="row")
         return x + h
 
     def _sparse(self, u: torch.Tensor, ctx: SparseCtx) -> torch.Tensor:
@@ -252,22 +279,27 @@ class ResBlock(nn.Module):
             h = torch.relu(apply_group_norm(u, m1, v1, self.norm1.weight,
                                             self.norm1.bias, self.groups))
         h = _mask2d(h, ctx.u_rows, ctx.u_cols)
-        h = self._conv(h.reshape((Fn * cap,) + h.shape[2:]), self.conv1, 0)
+        h = self._conv(h.reshape((Fn * cap,) + h.shape[2:]), self.conv1, 0, part="column")
         h = h.reshape((Fn, cap) + h.shape[1:])                    # T+2 windows
+        scale, bias, groups = self._norm_params(self.norm2, self.tp)
         if self.norm_mode == "affine":
-            h = torch.relu(h * _cast(self.norm2.weight, h.dtype)
-                           + _cast(self.norm2.bias, h.dtype))
+            h = torch.relu(h * _cast(scale, h.dtype) + _cast(bias, h.dtype))
         else:
-            m2, v2 = masked_group_stats(h[:, :, 1:T + 1, 1:T + 1], ctx.valid,
-                                        self.groups)
-            h = torch.relu(apply_group_norm(h, m2, v2, self.norm2.weight,
-                                            self.norm2.bias, self.groups))
+            m2, v2 = masked_group_stats(h[:, :, 1:T + 1, 1:T + 1], ctx.valid, groups)
+            h = torch.relu(apply_group_norm(h, m2, v2, scale, bias, groups))
         h = _mask2d(h, ctx.c1_rows, ctx.c1_cols)
-        h = self._conv(h.reshape((Fn * cap,) + h.shape[2:]), self.conv2, 0)
+        h = self._conv(h.reshape((Fn * cap,) + h.shape[2:]), self.conv2, 0, part="row")
         return u[:, :, 2:T + 2, 2:T + 2] + h.reshape((Fn, cap) + h.shape[1:])
 
 
 class UpsampleBlock(nn.Module):
+    """nearest-2x + conv3x3 (one fused conv), relu, ResBlock. Sharded over
+    'model' (tp), the conv computes this rank's output channels
+    (conv_weight / conv_bias on 'conv_out', as the JAX package annotates
+    them), joined again before the ResBlock."""
+
+    tp: Optional[ModelAxis] = None
+
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None, norm_mode: str = "group",
                  conv_impl: str = "xla"):
@@ -282,17 +314,18 @@ class UpsampleBlock(nn.Module):
                 sparse_ctx: Optional[SparseCtx] = None) -> torch.Tensor:
         """Dense: (B, H, W, C) -> (B, 2H, 2W, C'). Sparse: (F, cap, Tin+4,
         Tin+4, C) haloed input patches -> (F, cap, 2 Tin, 2 Tin, C')."""
+        x = copy_to_model(x, self.tp)
         if sparse_ctx is None:
             h = torch.relu(upsample2x_conv3x3_dilated(
                 x, self.conv_weight, self.conv_bias, self.dtype))
-            return self.res(h)
+            return self.res(gather_from_model(h, self.tp))
         Fn, cap, Pin = x.shape[:3]
         T = (Pin - 4) * 2
         h = upsample2x_conv3x3_dilated(x.reshape((Fn * cap,) + x.shape[2:]),
                                        self.conv_weight, self.conv_bias,
                                        self.dtype)
-        h = h[:, 2:2 + T + 4, 2:2 + T + 4]
-        h = torch.relu(h.reshape(Fn, cap, T + 4, T + 4, h.shape[-1]))
+        h = gather_from_model(torch.relu(h[:, 2:2 + T + 4, 2:2 + T + 4]), self.tp)
+        h = h.reshape(Fn, cap, T + 4, T + 4, h.shape[-1])
         h = _mask2d(h, sparse_ctx.u_rows, sparse_ctx.u_cols)
         return self.res(h, sparse_ctx)
 

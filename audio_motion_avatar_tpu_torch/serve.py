@@ -14,6 +14,11 @@ demo does.
 Geometry (SMPL-X FK/LBS, projection, splatting) runs in fp32 with TF32 off;
 the transformer, refiner and upsampler stacks run in cfg.compute_dtype
 (bf16 on the card: kernels A, K9a and K9b take bf16 operands).
+
+Over a mesh (`build_rollout(..., mesh=)`, parallel/mesh.py; the JAX
+package's serving mesh of tests/test_serving_mesh.py) the B streams shard
+over 'data' (each rank runs its rows; the answers are joined again, so the
+caller sees the whole batch) and the annotated weights over 'model'.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from .models.renderer import RendererStatics, build_renderer_statics
 from .ops import smplx as smplx_ops
 from .ops.attention import KERNEL_HEAD_DIM
 from .ops.cameras import orbit_cameras
+from .parallel import mesh as pmesh
 from .weights import init_weights
 
 
@@ -42,8 +48,9 @@ class Rollout:
     """One serving chunk per call, on the model's device."""
 
     def __init__(self, model: AudioDrivenAvatar, statics: RendererStatics,
-                 device: torch.device):
+                 device: torch.device, mesh: Optional[pmesh.Mesh] = None):
         self.model, self.statics, self.device = model, statics, device
+        self.mesh = mesh or pmesh.Mesh(1, 1)
 
     @torch.no_grad()
     def __call__(self, tri: torch.Tensor, smpl: torch.Tensor,
@@ -52,9 +59,13 @@ class Rollout:
         cams {intrinsic (B, T_out, 3, 3), extrinsic (B, T_out, 4, 4)} ->
         (rendered (B, T_out, H, W, 3), tri window, smpl window, pred)."""
         T_in = tri.shape[1]
+        m = self.mesh
         rendered, out_tri, out_smpl, pred = self.model.rollout(
-            self.statics, tri, smpl, audio, cams)
-        return rendered, out_tri[:, -T_in:], out_smpl[:, -T_in:], pred
+            self.statics, pmesh.rows(tri, m), pmesh.rows(smpl, m), pmesh.rows(audio, m),
+            {k: pmesh.rows(v, m) for k, v in cams.items()})
+        return (pmesh.gather_rows(rendered, m), pmesh.gather_rows(out_tri[:, -T_in:], m),
+                pmesh.gather_rows(out_smpl[:, -T_in:], m),
+                {k: pmesh.gather_rows(v, m) for k, v in pred.items()})
 
     @torch.no_grad()
     def chunks(self, tri: torch.Tensor, smpl: torch.Tensor, audio: torch.Tensor,
@@ -83,7 +94,13 @@ class Rollout:
                cams: dict):
         """Reference frames (B, T_in, 3, H, W) in [0, 1], their SMPL-X
         params and cameras -> the initial (triplane, SMPL-X) token window."""
-        return self.model.stage1_tokens(self.statics, images, smpl_params, cams)
+        m = self.mesh
+        tri, smpl = self.model.stage1_tokens(
+            self.statics, pmesh.rows(images, m),
+            None if smpl_params is None else {k: pmesh.rows(v, m)
+                                              for k, v in smpl_params.items()},
+            {k: pmesh.rows(v, m) for k, v in cams.items()})
+        return pmesh.gather_rows(tri, m), pmesh.gather_rows(smpl, m)
 
 
 def check_kernel_dtype(cfg: AvatarConfig, device: torch.device,
@@ -134,7 +151,7 @@ def build_rollout(cfg: AvatarConfig, device=None,
                   dtype: Optional[torch.dtype] = None,
                   smplx_model: Optional[smplx_ops.SmplxModel] = None,
                   state_dict: Optional[dict] = None, seed: int = 0,
-                  stage1: bool = False) -> Rollout:
+                  stage1: bool = False, mesh: Optional[pmesh.Mesh] = None) -> Rollout:
     """Serving model on `device` (CUDA unless "cpu" is asked for).
 
     dtype: compute dtype of the transformer / refiner / upsampler stacks
@@ -142,6 +159,9 @@ def build_rollout(cfg: AvatarConfig, device=None,
     from `state_dict` (e.g. weights.params_from_flax) or a seeded init.
     smplx_model: numpy SMPL-X model (default: the synthetic stand-in).
     stage1: also build the stage-1 encoder stack (for `Rollout.tokens`).
+    mesh: the process mesh (parallel/mesh.make_mesh): the weights, loaded
+    whole, are then sharded over its 'model' axis and the streams over
+    'data'.
 
     On the card, a configuration with head width 64 (kernel A's, which
     takes bf16 operands) needs the bf16 compute dtype; fp32 raises here
@@ -158,11 +178,13 @@ def build_rollout(cfg: AvatarConfig, device=None,
         model.load_state_dict(state_dict, strict=True)
     else:
         init_weights(model, seed)
+    if mesh is not None:
+        pmesh.shard_model(model, mesh)
     model.to(device).eval()
     statics = build_renderer_statics(smplx_model, device,
                                      subdivide_steps=cfg.subdivide_steps,
                                      densify=cfg.densify_smplx_verts)
-    return Rollout(model, statics, device)
+    return Rollout(model, statics, device, mesh)
 
 
 def serve(rollout: Rollout, tri: torch.Tensor, smpl: torch.Tensor,

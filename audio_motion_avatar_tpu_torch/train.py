@@ -12,8 +12,10 @@ composite K1 forward and K2 backward; configurations that select a
 forward-only kernel (the segmented splat S, the quad sampling Q, the
 forward-only attention names) are refused here; the sparse upsampler
 trains with the 4-tap or slab sampler. The CLIs' epoch loop, logging and checkpoints are
-training/trainer.py's (main.py, main2.py); the device mesh of the JAX
-package's trainer is not ported yet.
+training/trainer.py's (main.py, main2.py). Over a mesh (parallel/mesh.py)
+the model is sharded over 'model' after its weights are loaded, each data
+rank steps on its rows of the global batch (mesh.batch_rows), and the
+metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .models.avatar import TriplaneGaussianAvatar
 from .models.config import AvatarConfig
 from .models.renderer import build_renderer_statics
 from .ops import smplx as smplx_ops
+from .parallel import mesh as pmesh
 from .serve import check_kernel_dtype, num_verts_encoder, with_dtype
 from .training import stage1, stage2
 from .training.train_state import OptimConfig, TrainState, check_differentiable
@@ -53,15 +56,16 @@ class Trainer:
             self._step = stage1.make_train_step(model, statics, cfg)
             self.loop = None
         else:
-            self.loop = stage2.Stage2TrainLoop(model, statics, cfg,
-                                               replacement_prob, seed=seed)
+            self.loop = stage2.Stage2TrainLoop(model, statics, cfg, replacement_prob,
+                                               seed=seed, mesh=state.mesh)
 
     def step(self, ref_batch: VideoBatch, test_or_target_batch: Optional[VideoBatch],
              batch_id: int = 0) -> dict:
         """Batches of tensors on the model's device (data.synthetic.to_device).
         Stage 1: the reference views and the test views (or None); stage 2:
         the reference frames and the target frames with their audio, and
-        the batch id the prediction cache is keyed by."""
+        the batch id the prediction cache is keyed by. Over a mesh with data
+        ranks, this rank's rows of the global batch."""
         if self.stage == 1:
             _, metrics = self._step(self.state, ref_batch, test_or_target_batch)
         else:
@@ -75,7 +79,8 @@ def build_trainer(stage: int, cfg: AvatarConfig, device=None,
                   smplx_model: Optional[smplx_ops.SmplxModel] = None,
                   seed: int = 0, optim: Optional[OptimConfig] = None,
                   state_dict: Optional[dict] = None,
-                  replacement_prob: float = 0.0) -> Trainer:
+                  replacement_prob: float = 0.0,
+                  mesh: Optional[pmesh.Mesh] = None) -> Trainer:
     """A stage-1 (TriplaneGaussianAvatar) or stage-2 (AudioDrivenAvatar)
     trainer on `device` (CUDA unless "cpu" is asked for).
 
@@ -83,7 +88,9 @@ def build_trainer(stage: int, cfg: AvatarConfig, device=None,
     (torch.bfloat16 on the card; None keeps cfg.compute_dtype). optim: the
     optimizer (default: the stage's YAML, STAGE1_OPTIM / STAGE2_OPTIM).
     Weights come from `state_dict` (weights.params_from_flax) or a seeded
-    init. replacement_prob: stage 2's cache replacement probability."""
+    init. replacement_prob: stage 2's cache replacement probability. mesh:
+    the process mesh (parallel/mesh.make_mesh); the full weights are loaded,
+    then sharded over its 'model' axis."""
     if stage not in (1, 2):
         raise ValueError(f"stage must be 1 or 2, got {stage}")
     device = resolve_device(device)
@@ -104,5 +111,7 @@ def build_trainer(stage: int, cfg: AvatarConfig, device=None,
                                      subdivide_steps=cfg.subdivide_steps,
                                      densify=cfg.densify_smplx_verts)
     optim = optim or (STAGE1_OPTIM if stage == 1 else STAGE2_OPTIM)
-    return Trainer(stage, model, statics, TrainState(model, optim), cfg, device,
-                   replacement_prob, seed)
+    if mesh is not None:
+        pmesh.shard_model(model, mesh)
+    return Trainer(stage, model, statics, TrainState(model, optim, mesh=mesh), cfg,
+                   device, replacement_prob, seed)

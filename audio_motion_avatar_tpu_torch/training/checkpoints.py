@@ -11,6 +11,12 @@ latest; saves without metrics keep the latest `max_to_keep` (FIFO).
 `restore(state)` loads the latest (or a given) step into a TrainState,
 the frozen parameters kept as the state has them.
 
+Over a mesh the file holds the full tree: `save` gathers the
+'model'-sharded parameters and their optimizer state (a collective: every
+rank calls it) and rank 0 writes; `restore` reads the full tree on every
+rank and keeps its own slices. A checkpoint of a data- or tensor-parallel
+run restores in one process, and the reverse.
+
 `load_torch_state_dict` and `import_torch_ckpt` are the numpy helpers of a
 reference checkpoint's prefix remap.
 """
@@ -25,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import is_main
 from .train_state import FROZEN_PREFIXES, TrainState, is_frozen
 
 STATE_FILE = "state.pt"
@@ -76,8 +83,13 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metrics: Optional[dict] = None):
         params, _ = split_frozen(state.model.state_dict())
-        payload = {"params": _cpu(params), "opt_state": _cpu(state.opt.state_dict()),
+        opt = dict(state.opt.state_dict())
+        for name in ("mu", "nu", "acc"):
+            opt[name] = state.gather(opt[name])
+        payload = {"params": _cpu(state.gather(params)), "opt_state": _cpu(opt),
                    "step": int(state.step)}
+        if not is_main():
+            return
         final = os.path.join(self.directory, str(int(step)))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -123,7 +135,7 @@ class CheckpointManager:
         payload = torch.load(os.path.join(self.directory, str(int(step)), STATE_FILE),
                              map_location="cpu", weights_only=True)
         want, _ = split_frozen(state.model.state_dict(keep_vars=True))
-        got = payload["params"]
+        got = state.shard(payload["params"])
         if set(got) != set(want):
             missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
             raise KeyError(f"checkpoint step {step} does not match the model: missing "
@@ -133,7 +145,10 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint {k}: shape {tuple(v.shape)} != "
                                  f"{tuple(want[k].shape)}")
             want[k].copy_(v)
-        state.opt.load_state_dict(payload["opt_state"])
+        opt = dict(payload["opt_state"])
+        for name in ("mu", "nu", "acc"):
+            opt[name] = state.shard(opt[name])
+        state.opt.load_state_dict(opt)
         state.step = int(payload["step"])
         return state, True
 

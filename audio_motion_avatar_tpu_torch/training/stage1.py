@@ -23,7 +23,7 @@ import torch
 from ..data.synthetic import VideoBatch
 from ..ops.splat_tiles import render_multi_view
 from ..utils import losses as L
-from .train_state import TrainState, check_differentiable, global_norm
+from .train_state import TrainState, check_differentiable
 
 
 def stage1_loss(model, statics, ref_batch: VideoBatch,
@@ -90,7 +90,8 @@ def make_train_step(model, statics, cfg, with_test_views: bool = True):
         loss.backward()
         grads = state.grads()
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads.values()).detach()
+        metrics = state.global_metrics(metrics)
+        metrics["grad_norm"] = state.grad_norm(grads).detach()
         state.apply_gradients(grads)
         return state, metrics
 

@@ -14,8 +14,15 @@ JAX package's np.asarray does: a step's device keeps nothing of it, and
 Stage2TrainLoop moves a hit back to the step's device. The swap is
 models.audio_avatar's flag * cached + (1 - flag) * fresh. The stage-1
 reconstruction runs without autograd, so only the audio net, the shared
-SMPL-X decoder and the shared renderer get gradients. The cache lives in
-one process: the cross-process cache sync is not ported.
+SMPL-X decoder and the shared renderer get gradients.
+
+Over a mesh's data axis each rank puts its own rows of the global batch,
+and `cache_sync` (parallel/collectives.py) hands every rank every rank's
+new entry; `PredictionCache.merge` joins them row for row into the global
+batch's rows (data rank r's row k is global row k * n + r), so the cache
+holds what the one-process cache holds on the same global batch, and a hit
+hands each rank its own rows back. (The JAX package's merge is a
+dict.update, which under data parallelism keeps one rank's rows of a key.)
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ from typing import Optional
 import torch
 
 from ..data.synthetic import VideoBatch
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import cache_sync as _cache_sync
 from ..utils import losses as L
-from .train_state import TrainState, check_differentiable, global_norm
+from .train_state import TrainState, check_differentiable
 
 CACHE_FUTURE_OFFSET = 12
 CACHE_MAX_ITERS = 30
@@ -60,6 +69,24 @@ class PredictionCache:
                 "iter": iter_count + 1}
         self.store[key] = item
         return {key: item}
+
+    def merge(self, gathered):
+        """Every data rank's new entries (cache_sync's list, in rank order)
+        -> one entry a key holding every rank's rows in the global batch's
+        order (the one-process cache's)."""
+        keys = {k for items in gathered for k in (items or {})}
+        for key in keys:
+            parts = [items[key] for items in gathered if items and key in items]
+            if len(parts) != len(gathered):
+                raise ValueError(f"cache key {key}: {len(parts)} of {len(gathered)} "
+                                 "ranks added rows")
+
+            def interleave(name):
+                return torch.stack([p[name] for p in parts], 1).flatten(0, 1)
+
+            self.store[key] = {"triplane": interleave("triplane"),
+                               "smplx_tokens": interleave("smplx_tokens"),
+                               "iter": parts[0]["iter"]}
 
 
 def stage2_loss(model, statics, ref_batch: VideoBatch, target_batch: VideoBatch,
@@ -98,7 +125,8 @@ def make_train_step(model, statics, cfg):
         loss.backward()
         grads = state.grads()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads.values()).detach()
+        metrics = state.global_metrics(metrics)
+        metrics["grad_norm"] = state.grad_norm(grads).detach()
         state.apply_gradients(grads)
         return (state, metrics, out.output_triplane_tokens.detach(),
                 out.output_smpl_tokens.detach(), out.rendered_images.detach(),
@@ -145,13 +173,15 @@ def make_predict_step(model, statics, cfg):
 
 
 class Stage2TrainLoop:
-    """Host loop gluing the train step to the prediction cache."""
+    """Host loop gluing the train step to the prediction cache (and, over a
+    mesh with data ranks, to the cache sync over 'data')."""
 
     def __init__(self, model, statics, cfg, replacement_prob: float = 0.0,
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[pmesh.Mesh] = None):
         self.step_fn = make_train_step(model, statics, cfg)
         self.cache = PredictionCache(replacement_prob, seed)
         self.cfg = cfg
+        self.mesh = mesh or pmesh.Mesh(1, 1)
         self.last_rendered = None
         self.last_ref_rendered = None
 
@@ -161,7 +191,8 @@ class Stage2TrainLoop:
         dev = ref_batch.video.device
         use, tri, smpl, iters = self.cache.maybe_get(batch_id)
         if use:
-            tri, smpl = tri.to(dev), smpl.to(dev)
+            tri = pmesh.rows(tri, self.mesh).to(dev)
+            smpl = pmesh.rows(smpl, self.mesh).to(dev)
         else:
             tri, smpl = _zero_tokens(self.cfg, B, dev)
         flag = torch.full((B,), 1.0 if use else 0.0, device=dev)
@@ -169,7 +200,9 @@ class Stage2TrainLoop:
             state, ref_batch, target_batch, tri, smpl, flag)
         self.last_rendered = rendered
         self.last_ref_rendered = ref_rendered
-        self.cache.put(batch_id, out_tri, out_smpl, iters)
+        new_item = self.cache.put(batch_id, out_tri, out_smpl, iters)
+        if self.mesh.num_data > 1:
+            self.cache.merge(_cache_sync(new_item, self.mesh.data_group))
         metrics = dict(metrics)
         metrics["cache_iter"] = float(iters)
         return state, metrics

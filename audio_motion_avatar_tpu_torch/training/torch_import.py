@@ -474,11 +474,13 @@ def map_reference_state_dict(sd: dict, cfg, stage: int = 1) -> Tuple[dict, dict]
     return params, report
 
 
-def merge_into(model: nn.Module, partial: dict) -> list:
+def merge_into(model: nn.Module, partial: dict, shard=None) -> list:
     """Overlay an imported flax-layout tree (map_reference_state_dict's) onto
     `model`'s parameters in place, non-strict, checking shapes: each leaf
     goes through weights.params_from_flax's layout rules and is written, as
-    fp32, into the model's (fp32 master) parameter of that name. Returns the
+    fp32, into the model's (fp32 master) parameter of that name. shard: a
+    model sharded over a mesh's 'model' axis takes this rank's slice of each
+    leaf (TrainState.shard). Returns the
     mismatches, worded as the JAX merge_into's: "<flax path>: not in model"
     or "<flax path>: model <shape> vs ckpt <shape>" (torch layouts)."""
     params = model.state_dict(keep_vars=True)
@@ -486,6 +488,8 @@ def merge_into(model: nn.Module, partial: dict) -> list:
     with torch.no_grad():
         for path, key, value in flax_entries(partial):
             where = "/" + "/".join(path)
+            if shard is not None and key in params:
+                value = shard({key: value})[key]
             if key not in params:
                 mismatches.append(f"{where}: not in model")
             elif tuple(params[key].shape) != tuple(value.shape):

@@ -28,6 +28,16 @@ The JAX package's optax chain, step for step and in float32:
 Parameters under FROZEN_PREFIXES (the Sapiens encoder) carry no optimizer
 state and never move. A trainable parameter without a gradient counts as a
 zero gradient, as its zero cotangent does in JAX.
+
+Over a mesh (parallel/mesh.py) the train state holds this rank's slice of
+each 'model'-sharded parameter, and Adam's moments (and the accumulator)
+are made beside them, so they follow their parameters. The gradients are
+averaged over 'data' (every micro-step, before the clip: each micro-step's
+logged grad_norm is then the global batch's, as under the JAX mesh). The
+global norm, the clip and apply_if_finite see the whole tree: each sharded
+leaf's sum of squares (and its count of non-finite entries) is summed over
+'model', each replicated leaf counts once, so every rank takes the same
+decision, the one-process one.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 from torch import nn
 
 from ..models.transformer import FORWARD_ONLY_ATTN_IMPLS
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +103,35 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
-class Optimizer:
-    """The chain above over a fixed, ordered set of named parameters."""
+def tree_stats(grads: Dict[str, torch.Tensor], sharded: frozenset = frozenset(),
+               mesh: Optional["pmesh.Mesh"] = None, check_finite: bool = True):
+    """(global norm, every entry finite) of a gradient tree whose `sharded`
+    leaves are this rank's slices over the mesh's 'model' axis; without
+    sharded leaves, global_norm and the per-leaf check (skipped, True,
+    unless check_finite)."""
+    axis = None if mesh is None else mesh.model_axis
+    if axis is None or not sharded:
+        return (global_norm(grads.values()), not check_finite or
+                all(bool(torch.isfinite(g).all()) for g in grads.values()))
+    rep = [g for k, g in grads.items() if k not in sharded]
+    shd = [g for k, g in grads.items() if k in sharded]
+    part = torch.stack([sum(torch.sum(g.float() * g.float()) for g in shd),
+                        sum((~torch.isfinite(g)).sum().float() for g in shd)])
+    torch.distributed.all_reduce(part, group=axis.group)
+    sq = sum(torch.sum(g * g) for g in rep) + part[0]
+    finite = float(part[1]) == 0 and all(bool(torch.isfinite(g).all()) for g in rep)
+    return torch.sqrt(sq), finite
 
-    def __init__(self, cfg: OptimConfig, params: Dict[str, torch.Tensor]):
+
+class Optimizer:
+    """The chain above over a fixed, ordered set of named parameters;
+    `sharded` names the ones that are this rank's slices over the mesh's
+    'model' axis."""
+
+    def __init__(self, cfg: OptimConfig, params: Dict[str, torch.Tensor],
+                 mesh: Optional["pmesh.Mesh"] = None, sharded: frozenset = frozenset()):
         self.cfg = cfg
+        self.mesh, self.sharded = mesh, sharded
         self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
         self.count = 0              # applied updates
@@ -130,12 +165,11 @@ class Optimizer:
                params: Dict[str, torch.Tensor]) -> None:
         """apply_if_finite(chain(clip, adam)) applied to params in place."""
         cfg = self.cfg
+        g_norm, finite = tree_stats(grads, self.sharded, self.mesh, cfg.nan_guard)
         if cfg.nan_guard:
-            finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             if not finite and self.notfinite_count <= cfg.nan_guard_max_consecutive:
                 return
-        g_norm = global_norm(grads.values())
         clip = not bool(g_norm < cfg.grad_clip)
         b1, b2 = cfg.betas
         step = -learning_rate(cfg, self.count)
@@ -177,22 +211,50 @@ class Optimizer:
 
 class TrainState:
     """The model, its step count and the optimizer over the trainable
-    (not frozen) parameters."""
+    (not frozen) parameters; over a mesh, the model already sharded
+    (parallel/mesh.shard_model)."""
 
     def __init__(self, model: nn.Module, optim: OptimConfig,
-                 prefixes: Iterable[str] = FROZEN_PREFIXES):
+                 prefixes: Iterable[str] = FROZEN_PREFIXES,
+                 mesh: Optional["pmesh.Mesh"] = None):
         self.model = model
         self.step = 0
+        self.mesh = mesh or pmesh.Mesh(1, 1)
+        self.table = (pmesh.model_parallel_table(model)
+                      if self.mesh.model_axis is not None else {})
         self.trainable = {k: p for k, p in model.named_parameters()
                           if not is_frozen(k, prefixes)}
         self.frozen = {k: p for k, p in model.named_parameters()
                        if is_frozen(k, prefixes)}
-        self.opt = Optimizer(optim, self.trainable)
+        self.sharded = frozenset(k for k in self.trainable if k in self.table)
+        self.opt = Optimizer(optim, self.trainable, self.mesh, self.sharded)
 
     def grads(self) -> Dict[str, torch.Tensor]:
-        """The trainable parameters' gradients (zeros where none flowed)."""
-        return {k: torch.zeros_like(p) if p.grad is None else p.grad
-                for k, p in self.trainable.items()}
+        """The trainable parameters' gradients (zeros where none flowed),
+        averaged over the mesh's data ranks."""
+        return pmesh.average_over_data(
+            {k: torch.zeros_like(p) if p.grad is None else p.grad
+             for k, p in self.trainable.items()}, self.mesh)
+
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole gradient tree (grad_norm's metric)."""
+        return tree_stats(grads, self.sharded, self.mesh, check_finite=False)[0]
+
+    def global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This data rank's metrics -> the global batch's (mesh.reduce_metrics)."""
+        return pmesh.reduce_metrics(metrics, self.mesh)
+
+    def gather(self, tree: Optional[Dict[str, torch.Tensor]]):
+        """A {parameter name: tensor} tree of this rank's slices -> the full
+        tensors (a collective over 'model'; the identity without it)."""
+        return None if tree is None else pmesh.gather_params(tree, self.table, self.mesh)
+
+    def shard(self, tree: Optional[Dict[str, torch.Tensor]]):
+        """A full {parameter name: tensor} tree -> this rank's slices."""
+        if tree is None or self.mesh.model_axis is None:
+            return tree
+        return pmesh.shard_state_dict(tree, self.table, self.mesh.num_model,
+                                      self.mesh.model_rank)
 
     def zero_grad(self) -> None:
         for p in self.model.parameters():

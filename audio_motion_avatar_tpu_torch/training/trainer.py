@@ -19,9 +19,13 @@ the logs exist where tensorboard is not installed; `read_scalars` reads
 them back. A request for wandb falls back to the event files, as the JAX
 logger does when wandb is missing.
 
-The JAX trainer shrinks its device mesh to the devices it finds; the port
-has one device a process and refuses training.devices > 1 or
-training.model_parallel > 1 rather than let one card stand in for several.
+Over a mesh (parallel/mesh.py: training.devices x training.model_parallel,
+one process a card, shrunk to the processes there are as the JAX trainer
+shrinks to its devices) every rank runs the steps; rank 0 alone writes the
+event files, the comparison PNGs and the checkpoints (which hold the full,
+gathered tree). Validation reads the evaluation batches whole on every rank
+(as the JAX trainer's replicated evaluation), so its metrics are the global
+batch's.
 """
 
 from __future__ import annotations
@@ -37,11 +41,12 @@ import torch
 
 from ..data.synthetic import to_device
 from ..device import resolve_device
+from ..parallel import mesh as pmesh
+from ..parallel.distributed import is_main
 from ..utils.video import encode_png, to_uint8
 from .checkpoints import CheckpointManager
 from .train_state import _linear
 
-PARALLEL_ITEM = "ROADMAP.md section 1 item 7 (parallelism)"
 FILE_VERSION = b"brain.Event:2"
 
 
@@ -237,26 +242,16 @@ def _host(x) -> np.ndarray:
     return x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def refuse_parallel(cfg) -> None:
-    """training.devices or training.model_parallel above 1 raise: one card
-    a process, nothing shards."""
-    t = cfg.training
-    n_data, n_model = int(t.get("devices", 1)), int(t.get("model_parallel", 1))
-    if n_data > 1 or n_model > 1:
-        raise NotImplementedError(
-            f"training.devices={n_data}, training.model_parallel={n_model}: data and "
-            f"tensor parallelism are not ported yet ({PARALLEL_ITEM}); set both to 1")
-
-
 class Trainer:
     def __init__(self, cfg, train_step: Callable, eval_step: Optional[Callable],
                  output_dir: Optional[str] = None, render_fn: Optional[Callable] = None,
-                 device=None):
+                 device=None, mesh: Optional[pmesh.Mesh] = None):
         """render_fn(ref_batch) -> (rendered (B, T, H, W, 3), target (B, T,
         H, W, 3)) for the comparison PNGs. device: where batches go (CUDA
-        unless "cpu" is asked for)."""
-        refuse_parallel(cfg)
+        unless "cpu" is asked for). mesh: the steps' (default: built from
+        the config, pmesh.mesh_from_config)."""
         t = cfg.training
+        self.mesh = mesh or pmesh.mesh_from_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_step = train_step
@@ -273,7 +268,7 @@ class Trainer:
         self.output_dir = output_dir or t.get("output_dir", "outputs")
         os.makedirs(self.output_dir, exist_ok=True)
         self.logger = MetricLogger(
-            os.path.join(self.output_dir, "tb"), use_tb=not self.fast_dev_run,
+            os.path.join(self.output_dir, "tb"), use_tb=not self.fast_dev_run and is_main(),
             use_wandb=bool(t.get("logging", {}).get("use_wandb", False)))
         self.ckpt = None
         if not self.fast_dev_run:
@@ -311,14 +306,17 @@ class Trainer:
                     metrics["step_time_s"] = time.perf_counter() - t0
                     metrics["lr"] = self.learning_rate(global_step)
                     self.logger.log(global_step, metrics, "train")
-                    print(f"[e{epoch} s{global_step}] " +
-                          " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+                    if is_main():
+                        print(f"[e{epoch} s{global_step}] " +
+                              " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
                 if self.render_fn is not None and global_step % self.image_every == 0:
+                    # every rank renders (the model's collectives), rank 0 writes
                     rendered, target = self.render_fn(ref)
-                    save_comparison_image(
-                        os.path.join(self.output_dir, "train_images",
-                                     f"comparison_{global_step}.png"),
-                        _host(rendered[0]), _host(target[0]))
+                    if is_main():
+                        save_comparison_image(
+                            os.path.join(self.output_dir, "train_images",
+                                         f"comparison_{global_step}.png"),
+                            _host(rendered[0]), _host(target[0]))
                 global_step += 1
                 if self.fast_dev_run:
                     break
@@ -346,6 +344,7 @@ class Trainer:
                 agg[k] = agg.get(k, 0.0) + float(v)
             if save_images and self.render_fn is not None:
                 rendered, target = self.render_fn(ref)
+            if save_images and self.render_fn is not None and is_main():
                 save_comparison_image(
                     os.path.join(self.output_dir, "test_images",
                                  f"triplane_comparison_{n}.png"),

@@ -93,15 +93,15 @@ Phases (any failure exits non-zero):
   8. serve from a reference — the serving model with its stage-1 stack: the
                tokens of 2 streams' 2 reference frames (the stage-1 pass, render
                off), then one rollout request from them; frames checked as in 4.
-  9. small train — a tiny train step of each stage on the card against the
-               CPU (plain versions): fp32, loss within 1e-4 and gradients
+  9. small train — a tiny train step of each stage (a batch of 2) on the card
+               against the CPU (plain versions): fp32, loss within 1e-4 and gradients
                within 1e-3; then bf16 with 64-wide heads: every A-bwd and K2
                launch of the step held against its plain version on its own
                inputs, and the step against the CPU's bf16 step with the
                attention rounding where kernels A and A-bwd round, within 3x
                the largest CPU bf16-vs-fp32 distance over three draws of the
                input frames; launches as the config implies;
- 10. train stage 1 — full width (AvatarConfig(), Sapiens-1B frozen, bf16, B = 1,
+ 10. train stage 1 — full width (AvatarConfig(), the frozen ViT one block deep, bf16, B = 1,
                1024^2, 8 test views, lr 5e-5, accumulate 4, clip 1.0): 1
                warm-up + 8 micro-steps (two updates); ms a micro-step, peak
                memory, finite losses, moved trainable parameters, a
@@ -112,8 +112,9 @@ Phases (any failure exits non-zero):
                op's output the same bits;
  11. train stage 2 — the serving widths with the default render form at
                1296x2304, B = 2, T_in = 2, T_out = 6, lr 1e-4, clip 1.0, both
-               remat knobs: 1 warm-up + 3 steps through Stage2TrainLoop, one
-               reusing the prediction cache; the same checks.
+               remat knobs: 1 warm-up + 2 steps through Stage2TrainLoop (3
+               before phase 18 needed the time), one reusing the prediction
+               cache; the same checks.
  10b. train stage 1, winograd_gn — phase 10 with upsampler_conv='winograd_gn',
                accumulate 1: 1 warm-up + 2 micro-steps; the same checks (K9b
                16 a micro-step, remat recompute included), ms and peak memory
@@ -126,12 +127,13 @@ Phases (any failure exits non-zero):
                Wav2Vec2-base window (12 x 768, fp32, TF32 off) on the card
                against the CPU within 1e-3 of max|ref|, and its ms;
  12. demo — `main2.main --mode demo` at full width: config_stage_2.yaml with
-               the synthetic dataset at 512^2, 14 items (2 chunks, B = 2, 24
-               frames), bf16, `--checkpoint` of tamed seeded weights, `--audio`
-               a 16 kHz tone, a seeded Wav2Vec2-base checkout, the synthetic
-               body in the released layout (release_body, as phase 15; all
-               written under build/demo/); checks 24 frames written and not
-               blank, 24 overlays drawn, finite losses, S / Q / A launches as
+               the synthetic dataset at 512^2, 2 items (1 chunk, B = 2, 12
+               frames; 2 chunks before phase 18 needed the time), bf16, `--checkpoint` of
+               tamed seeded weights, `--audio` a 16 kHz tone, a seeded
+               Wav2Vec2-base checkout, the synthetic body in the released
+               layout (release_body, as phase 15; all written under
+               build/demo/); checks 12 frames written and not blank, 12
+               overlays drawn, finite losses, S / Q / A launches as
                the path implies (the stage-1 token pass included); prints the seconds of
                the build, data, stage-1 tokens, audio features, each chunk's
                rollout, losses, overlays and writing, the demo's and the
@@ -155,18 +157,20 @@ Phases (any failure exits non-zero):
                memory; and the host's seconds to decode a 1920 x 1080 PNG
                under each row filter and to resize it;
  14. train CLI, stage 2 — main2.main --mode train on config_stage_2.yaml (bf16)
-               with the TED reader on a 42-frame clip at 1296 x 2304 from
-               phase 11's seeded weights, B = 2: 7 steps, the last taking the
-               prediction cache; then --mode test from its checkpoint on
-               the clip's first 22 frames (4 items); the same checks, the
-               cache depth of each step, the ms of a step beside phase 11's.
+               with the TED reader on a 22-frame clip at 1296 x 2304 from
+               phase 11's seeded weights, B = 2: 2 steps (cut from 7 steps
+               on 42 frames, and the frozen ViT cut to one block, to make
+               room for phase 18); then --mode test
+               from its checkpoint on the clip (4 items); the same checks,
+               the cache depth of each step, the ms of a step beside phase
+               11's.
  14b. train CLI, stage 2, workers — phase 14's fit with
                training.dataloader.num_workers=4 (the native prefetch ring,
-               built by g++ into build/host/) on the clip's first 22 frames
-               (2 steps): the ring that ran, every item handed on once, the
-               launches; the wall a step beside phase 14's.
+               built by g++ into build/host/) on the same clip (2 steps):
+               the ring that ran, every item handed on once, the launches;
+               the wall a step beside phase 14's.
  15. import demo — `main2.main --mode demo --checkpoint FILE`: phase 12's demo
-               at 2 chunks from a seeded Lightning .ckpt of the released
+               at 1 chunk from a seeded Lightning .ckpt of the released
                stage-2 checkpoint's 649 tensor names and shapes
                (tests/fixtures/ted_full_ckpt.manifest.json) on the synthetic
                body with the released face count (build/import/): 0
@@ -202,10 +206,42 @@ Phases (any failure exits non-zero):
                update beside phase 10's, launches, peak memory, finite
                losses, the update moving the downsampler, the shs head and
                the loss.
-Each phase prints its seconds, and the script its whole run's. Then one
+18a. small parallel — parallel/ on the one card, ranks as processes of this
+               script (python3 chip_smoke.py --rank ...) joined by gloo with
+               CUDA tensors, since NCCL refuses two ranks of one
+               communicator on one card (a probe pair prints NCCL's answer):
+               tiny bf16 train steps of both stages (64-wide heads: A and
+               A-bwd on the local heads) over (2, 1) and (1, 2), each held
+               to the one-process step on the card within 3x the CPU's bf16
+               vs fp32 distance over three draws (phase 9's rule); launches
+               as the local batch implies; main2 --mode train on
+               config_tiny.yaml at world size 1 over NCCL (torchrun's
+               variables, training.multihost=true).
+ 18. parallel — (a) main2 --mode train with training.devices=2 on phase
+               14's clip (2 steps, B = 2 global, 1 a rank), two processes on
+               the card started with torchrun's variables, --dist-backend
+               gloo --device cuda:0: the first step held to phase 14's
+               first step (the loss within 3x the distance between that
+               batch's loss as one batch and as two rows, measured in 14,
+               and within 1e-5 of the latter; grad_norm within 18a's
+               stage-2 gradient bound), per rank
+               ms a step, the gradient all-reduce's seconds, peak memory,
+               launches, cache depth; one event file and one checkpoint;
+               (b) one serving request at the serving width over (1, 2) on
+               the same processes (phase 4's model, tokens and request):
+               frames against phase 4's (mean|diff| <= 1e-2, the squared
+               difference within 3x that of the request's streams served
+               one at a time in one process), kernel A's launches and local
+               heads a rank. Times are correctness context (two ranks share
+               the card, gloo crosses the host).
+Every full-width phase but the reconstruction (7, 7b), phase 17's stage-1
+model and the kernel checks builds the frozen Sapiens ViT one block deep
+(SHALLOW_VIT: its seeded init took ~15 s a build; the script's time limit). Each phase prints its seconds, and the
+script its whole run's. Then one
 {"kernels": [...]} line (nine kernels: splash is kernel A under the JAX
 package's splash name; each kernel's launches those of its paths,
-phases 15, 16, 17a and 17 added), the card's name and power limit, and as the last
+phases 15, 16, 17a, 17, 18a and 18 added, the ranks' counted in their own
+processes), the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Takes about a quarter of an hour on one
 H100, the kernels' build included.
 """
@@ -1544,19 +1580,25 @@ def segment_entries(cfg, gaussians, cams):
     return int(counts.sum())
 
 
+def frames_distance(got, want):
+    """(mean |diff|, max |diff|, mean squared diff, PSNR in dB) of two
+    frame tensors in [0, 1]."""
+    import math
+    diff = (got.float() - want.float()).abs()
+    mse = float((diff ** 2).mean())
+    return float(diff.mean()), float(diff.max()), mse, 10 * math.log10(1.0 / max(mse, 1e-20))
+
+
 def frames_close(got, want, name, against="the direct convs'"):
     """A serving / render knob of the bf16 rounding class (the Winograd
     convs, the sparse samplers) against `against`'s frames on the same
     inputs and weights: mean |diff| <= 1e-2 and PSNR >= 40 dB (the JAX
     package's gate for such a knob, its tests/test_demo_golden.py)."""
-    import math
-    diff = (got.float() - want.float()).abs()
-    mse = float((diff ** 2).mean())
-    psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+    mean, mx, _, psnr = frames_distance(got, want)
     print(f"[{name}] frames against {against} on the same inputs: mean|diff|="
-          f"{float(diff.mean()):.3e} (tol 1e-2), max|diff|={float(diff.max()):.3e}, PSNR "
-          f"{psnr:.2f} dB (tol 40)", flush=True)
-    if not (float(diff.mean()) <= 1e-2 and psnr >= 40.0):
+          f"{mean:.3e} (tol 1e-2), max|diff|={mx:.3e}, PSNR {psnr:.2f} dB (tol 40)",
+          flush=True)
+    if not (mean <= 1e-2 and psnr >= 40.0):
         raise AssertionError(f"{name}: frames differ from {against} beyond the "
                              "rounding class")
 
@@ -1770,7 +1812,8 @@ def serve_from_reference(dev):
     from audio_motion_avatar_tpu_torch.serve import build_rollout, serve, synthetic_inputs
     from audio_motion_avatar_tpu_torch.weights import perturb_heads
 
-    cfg = serving_config(AvatarConfig(), image_size=(512, 512), upsampler_norm="affine")
+    cfg = serving_config(AvatarConfig(vit_depth=SHALLOW_VIT), image_size=(512, 512),
+                         upsampler_norm="affine")
     t0 = time.perf_counter()
     roll = build_rollout(cfg, device=dev, dtype=torch.bfloat16, seed=0, stage1=True)
     perturb_heads(roll.model, seed=1, std=1e-2)
@@ -1963,18 +2006,25 @@ def check_small_train(dev):
     distance can fall far below its usual size). The launches must equal
     the count the configuration implies.
     Also printed: the distances with the fp32 plain attention on the CPU,
-    the yardstick that leaves the kernels' rounding out."""
+    the yardstick that leaves the kernels' rounding out. Returns the bf16
+    steps' bounds {stage: (loss, gradients)} (phase 18a holds its stage-2
+    steps, the same configuration and batch, to them)."""
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
 
+    bounds = {}
     for stage in (1, 2):
-        hold_train_step(dev, stage, AvatarConfig.tiny(image_size=(32, 32)), f"stage {stage}")
+        hold_train_step(dev, stage, AvatarConfig.tiny(image_size=(32, 32)), f"stage {stage}",
+                        bounds=bounds, rows=2)
+    return bounds
 
 
-def hold_train_step(dev, stage, cfg, name, tag="small train"):
+def hold_train_step(dev, stage, cfg, name, tag="small train", bounds=None, rows=1):
     """Phase 9's two holds of one tiny train step of `stage` in configuration
     `cfg` (32x32): the fp32 step card vs CPU, then the bf16 step with
     64-wide heads against the CPU's with the kernels' rounding
-    (check_small_train says how). Returns the bf16 step's launches."""
+    (check_small_train says how). Stage 1 takes `rows` rows (one reference
+    view, 3 test views each), stage 2 two. Returns the bf16 step's
+    launches; its bound (loss, gradients) goes into bounds[stage]."""
     import dataclasses
 
     import torch
@@ -1996,8 +2046,8 @@ def hold_train_step(dev, stage, cfg, name, tag="small train"):
     def batches(stage, cfg, d, seeds):
         ref, tgt = seeds
         if stage == 1:
-            return (to_device(make_batch(1, 1, size, seed=ref), d),
-                    to_device(make_batch(1, 3, size, seed=tgt), d))
+            return (to_device(make_batch(rows, 1, size, seed=ref), d),
+                    to_device(make_batch(rows, 3, size, seed=tgt), d))
         return (to_device(make_batch(2, cfg.triplane_input_frames, size, seed=ref), d),
                 to_device(make_batch(2, cfg.triplane_output_frames, size, seed=tgt,
                                      with_audio=True, audio_dim=cfg.audio_feature_dim), d))
@@ -2034,8 +2084,8 @@ def hold_train_step(dev, stage, cfg, name, tag="small train"):
     with checked_backwards() as worst:
         loss_card, g_card, _ = run(stage, cfg, dev, torch.bfloat16, tokens)
     launches = {fn.__name__: fn.launches for fn in counters}
-    B, T_in, T_out = (1, 1, 3) if stage == 1 else (2, cfg.triplane_input_frames,
-                                                   cfg.triplane_output_frames)
+    B, T_in, T_out = (rows, 1, 3) if stage == 1 else (2, cfg.triplane_input_frames,
+                                                      cfg.triplane_output_frames)
     want = train_launches(cfg, stage, B, T_in, T_out)
     loss_r, g_r, _ = rounded_cpu(stage, cfg, tokens)
     loss_p, g_p, _ = run(stage, cfg, "cpu", torch.bfloat16, tokens)
@@ -2065,6 +2115,8 @@ def hold_train_step(dev, stage, cfg, name, tag="small train"):
           f"bf16 steps apart {abs(loss_r - loss_p):.3e}, {grads_distance(g_r, g_p):.3e}",
           flush=True)
     check_launches(f"{tag} {name}", launches, want)
+    if bounds is not None:
+        bounds[stage] = tol
     if not (worst["attention_bwd"] <= 1.0 and worst["composite_tiles_bwd"] <= 1.0):
         raise AssertionError(f"tiny bf16 {name} train step: a backward kernel "
                              f"disagrees with its plain version on its inputs: {worst}")
@@ -2085,8 +2137,9 @@ def run_train(dev, stage, conv="xla"):
     serving model's widths with the default render form (dense upsampler,
     tile splat), ted_speech.yaml's 1296x2304 frames, B = 2, T_in = 2,
     T_out = 6, train_stage2.yaml's lr 1e-4 and clip 1.0, both remat knobs on,
-    through Stage2TrainLoop: 1 warm-up step and 3 with batch ids 1, 12, 2
-    at replacement probability 1 (batch 12 reuses the cache batch 0 wrote).
+    through Stage2TrainLoop: 1 warm-up step and 2 with batch ids 1, 12 at
+    replacement probability 1 (batch 12 reuses the cache batch 0 wrote). The
+    frozen ViT one block deep (SHALLOW_VIT).
     Checks finite losses, moved trainable parameters, a bit-identical
     frozen ViT and the launches the configuration implies."""
     import dataclasses
@@ -2101,14 +2154,14 @@ def run_train(dev, stage, conv="xla"):
 
     tag = f"train stage {stage}" + ("" if conv == "xla" else f", {conv}")
     if stage == 1 and conv != "xla":
-        cfg, B, T_in, T_out = AvatarConfig(upsampler_conv=conv), 1, 1, 8
+        cfg, B, T_in, T_out = AvatarConfig(upsampler_conv=conv, vit_depth=SHALLOW_VIT), 1, 1, 8
         ids, optim, prob = [0] * 3, dataclasses.replace(STAGE1_OPTIM, accumulate_steps=1), 0.0
     elif stage == 1:
-        cfg, B, T_in, T_out = AvatarConfig(), 1, 1, 8
+        cfg, B, T_in, T_out = AvatarConfig(vit_depth=SHALLOW_VIT), 1, 1, 8
         ids, optim, prob = [0] * 9, STAGE1_OPTIM, 0.0
     else:
-        cfg, B, T_in, T_out = AvatarConfig(image_size=(1296, 2304)), 2, 2, 6
-        ids, optim, prob = [0, 1, 12, 2], STAGE2_OPTIM, 1.0
+        cfg, B, T_in, T_out = AvatarConfig(image_size=(1296, 2304), vit_depth=SHALLOW_VIT), 2, 2, 6
+        ids, optim, prob = [0, 1, 12], STAGE2_OPTIM, 1.0
     H, W = cfg.image_size
     t0 = time.perf_counter()
     tr = seeded_trainer(stage, cfg, dev, torch.bfloat16, optim=optim, replacement_prob=prob)
@@ -2168,7 +2221,7 @@ def run_train(dev, stage, conv="xla"):
         raise AssertionError(f"{tag}: non-finite loss or gradient norm")
     if moved == 0 or not same or tr.state.opt.count < 2:
         raise AssertionError(f"{tag}: trainable parameters did not move or the frozen ViT changed")
-    if stage == 2 and [mt["cache_iter"] for mt in metrics] != [0.0, 1.0, 0.0]:
+    if stage == 2 and [mt["cache_iter"] for mt in metrics] != [0.0, 1.0]:
         raise AssertionError(f"{tag}: the cache was not reused at batch 12")
     if stage == 1 and conv == "xla":
         eval_determinism(dev, tr)
@@ -2339,7 +2392,8 @@ def check_small_demo(dev):
 
 def full_demo(dev):
     """12: main2 --mode demo at full width (config_stage_2.yaml, 512^2 synthetic
-    data, B = 2, 2 chunks = 24 frames, bf16), from a checkpoint of tamed
+    data, B = 2, 1 chunk = 12 frames (2 chunks until the script's time
+    limit cut it for phase 18), bf16), from a checkpoint of tamed
     seeded weights, a 16 kHz tone wav, a seeded Wav2Vec2-base checkout and
     the synthetic body in the released layout (release_body: its triangles
     join neighbours, as the released body's do, where the synthetic body's
@@ -2356,9 +2410,9 @@ def full_demo(dev):
     w2v = os.path.join(DEMO_DIR, "wav2vec2_base")
     body = os.path.join(DEMO_DIR, "SMPLX_NEUTRAL.npz")
     over = ["dataset.type=SyntheticDataset", "dataset.image_size=[512,512]",
-            "dataset.length=14", f"dataset.wav2vec2_model_path={w2v}",
+            "dataset.length=2", f"dataset.wav2vec2_model_path={w2v}",
             "model.compute_dtype=bfloat16", f"model.triplane_net.smplx_model_path={body}",
-            f"training.output_dir={DEMO_DIR}"]
+            f"training.output_dir={DEMO_DIR}", CLI_VIT]
     t0 = time.perf_counter()
     release_body(body)
     ckpt = os.path.join(DEMO_DIR, "ckpt")
@@ -2588,6 +2642,13 @@ def translation(t):
 
 
 TED_DEPTH = 4.0     # the speaker's distance from the TED fixture's camera
+# every full-width phase but the reconstruction (7, 7b: its latency counts
+# the ViT), phase 17's stage-1 model (its seeded novel views went blank on
+# the shallow ViT's tokens) and the kernel checks builds the frozen Sapiens
+# ViT one block deep: the 40 blocks' seeded init took ~15 s of each build
+# (the script's time limit); the ViT feeds the token pass, never a gradient
+SHALLOW_VIT = 1
+CLI_VIT = f"model.sapiens_encoder.vit_depth={SHALLOW_VIT}"
 
 
 def ted_fixture(root, body, dev, frames, size, render_size=None, seed=0, chunk=6):
@@ -2639,19 +2700,6 @@ def ted_fixture(root, body, dev, frames, size, render_size=None, seed=0, chunk=6
     write_wav(os.path.join(root, "speech.wav"),
               0.3 * np.sin(2 * np.pi * 220.0 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)))
     return time.perf_counter() - t0
-
-
-def ted_prefix(root, dst, frames):
-    """A TED-layout clip at `dst` of the first `frames` frames of the clip
-    at `root`, by symbolic links (the wav too: the reader trims it to the
-    frames' duration)."""
-    import shutil
-    shutil.rmtree(dst, ignore_errors=True)
-    for sub in ("imgs_png", "samurai_seg", "smplx_params"):
-        os.makedirs(os.path.join(dst, sub))
-        for name in sorted(os.listdir(os.path.join(root, sub)))[:frames]:
-            os.symlink(os.path.join(root, sub, name), os.path.join(dst, sub, name))
-    os.symlink(os.path.join(root, "speech.wav"), os.path.join(dst, "speech.wav"))
 
 
 def logged_scalars(out):
@@ -3023,7 +3071,8 @@ def cli_train_stage1(dev, phase10_ms, size=1024, extra=()):
     over = ["model.compute_dtype=bfloat16", f"dataset.dataset_root={root}",
             f"dataset.smplx_params_path={root}/smplx", f"dataset.train_list={root}/train.txt",
             f"dataset.val_list={root}/val.txt", "training.max_epochs=1",
-            "training.logging.log_every_n_steps=1", f"training.output_dir={out}", *extra]
+            "training.logging.log_every_n_steps=1", f"training.output_dir={out}", CLI_VIT,
+            *extra]
     t0 = time.perf_counter()
     ckpt = os.path.join(CLI_DIR, "stage1_ckpt")
     start = cli_checkpoint(1, config, over, ckpt)
@@ -3099,13 +3148,15 @@ def cli_train_stage1(dev, phase10_ms, size=1024, extra=()):
 def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     """14: `main2.main --mode train` at full width: config_stage_2.yaml with
     model.compute_dtype=bfloat16 and the TED reader on a clip under
-    build/cli/ (42 frames of the synthetic body at 1296 x 2304 with grey
+    build/cli/ (22 frames of the synthetic body at 1296 x 2304 with grey
     masks, SMPL-X JSONs, a 16 kHz wav; dataset.wav2vec2_model_path a seeded
     Wav2Vec2-base checkout), from a checkpoint of phase 11's seeded weights:
-    batch 2, one epoch of 7 steps (batch ids 0, 2, ..., 12) at
-    cache_replacement_prob 1, so the step at batch 12 takes the prediction
-    batch 0 cached; then `main2.main --mode test` from the written
-    checkpoint on the clip's first 22 frames (4 items, B = 1). Checks
+    batch 2, one epoch of 2 steps (batch ids 0, 2) at
+    cache_replacement_prob 1 (each step puts its prediction in the cache;
+    none reads one: phase 11 takes the cache through Stage2TrainLoop, and
+    the script's time limit cut this fit from 7 steps on 42 frames); then
+    `main2.main --mode test` from the written checkpoint on the clip (4
+    items, B = 1). Its first step is phase 18(a)'s one-process side. Checks
     finite losses, moved trainable
     parameters, a bit-identical ViT, the event files, the comparison PNGs,
     the cache depth of each step and K1 / K2 / A / A-bwd launches as the
@@ -3113,8 +3164,8 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     read back) beside phase 11's, the host's seconds a step in the reader
     (decode, composite and resize apart) and the peak memory. size and
     extra rehearse it small, as in phase 13. Returns its launches, the wall
-    a step (batch hand-off to hand-off), the step's own ms and the reader's
-    seconds an item, for phase 14b."""
+    a step (batch hand-off to hand-off), the step's own ms, the reader's
+    seconds an item and the first step's metrics, for phases 14b and 18."""
     import shutil
 
     import torch
@@ -3130,23 +3181,24 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     w2v = os.path.join(DEMO_DIR, "wav2vec2_base")
     if not os.path.exists(os.path.join(w2v, "pytorch_model.bin")):
         wav2vec2_checkout(w2v)
-    fixture_s = ted_fixture(root, smplx_ops.synthetic_model(seed=0), dev, 42, size)
+    fixture_s = ted_fixture(root, smplx_ops.synthetic_model(seed=0), dev, 22, size)
     over = ["model.compute_dtype=bfloat16", f"dataset.root_dir={root}",
             f"dataset.wav2vec2_model_path={w2v}", "training.max_epochs=1",
             "training.cache_replacement_prob=1.0", "training.logging.log_every_n_steps=1",
-            f"training.output_dir={out}", *extra]
+            f"training.output_dir={out}", CLI_VIT, *extra]
     t0 = time.perf_counter()
     ckpt = os.path.join(CLI_DIR, "stage2_ckpt")
     start = cli_checkpoint(2, config, over, ckpt)
-    print(f"[{tag}] fixture (42 frames at {size[0]} x {size[1]}) {fixture_s:.1f} s, seeded checkpoint "
+    print(f"[{tag}] fixture (22 frames at {size[0]} x {size[1]}) {fixture_s:.1f} s, seeded checkpoint "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(out, ignore_errors=True)
 
-    host, built, seen = {}, [], {}
+    host, built, seen, rolls = {}, [], {}, []
     peak_memory(dev, reset=True)
     t0 = time.perf_counter()
     with counted() as fit_launches, train_handoffs(seen), \
-            built_models(cli2, "build_stage2", lambda roll: roll.model, built), \
+            built_models(cli2, "build_stage2", lambda roll: rolls.append(roll) or roll.model,
+                         built), \
             host_seconds(speech.GaussianAudioDataset, "__getitem__", host, "items"), \
             host_seconds(speech.GaussianAudioDataset, "_load_frame", host, "frames"):
         summary = cli2.main(["--device", str(dev), "--config", config, "--mode", "train",
@@ -3160,15 +3212,18 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     step_ms = [1e3 * st["seconds"] for st in steps]
     trained_checks(tag, model, start, vit_before, losses)
     logged = [v for _, t, v in logged_scalars(out) if t == "train/loss"]
-    del built[:], model, vit_before
+    rowwise = first_batch_losses(rolls[0], start, ConfigLoader.load_config(config, over), dev)
+    print(f"[{tag}] the first batch's loss on the starting weights, forward only: as one "
+          f"batch of 2 {rowwise[0]:.6f} (the step's {losses[0]:.6f}), as 2 batches of 1 "
+          f"{rowwise[1]:.6f} (relative {abs(rowwise[1] - rowwise[0]) / abs(rowwise[0]):.3e}: "
+          f"phase 18(a)'s bound is 3x this)", flush=True)
+    del built[:], model, vit_before, rolls[:]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ted_prefix(root, os.path.join(CLI_DIR, "ted_22"), 22)
     with counted() as test_launches:
         test = cli2.main(["--device", str(dev), "--config", config, "--mode", "test",
-                          "--checkpoint", os.path.join(out, "checkpoints"), *over,
-                          f"dataset.root_dir={os.path.join(CLI_DIR, 'ted_22')}"])
+                          "--checkpoint", os.path.join(out, "checkpoints"), *over])
     test_s = time.perf_counter() - t0
     ac = build_avatar_config(ConfigLoader.load_config(config, over))
     want_fit = add_launches((train_launches(ac, 2, 2, 2, 6), len(steps)))
@@ -3190,12 +3245,12 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
     files = [os.path.join(images, "audio_comparison_0_iter0.png"),
              os.path.join(images, "ref_comparison_0.png")] + \
         [os.path.join(out, "predict_results", f"audio_comparison_{n}.png") for n in range(4)]
-    if len(steps) != 7 or depths != [0] * 6 + [1] or \
+    if len(steps) != 2 or depths != [0, 0] or \
             [round(v, 4) for v in logged] != [round(v, 4) for v in losses]:
         raise AssertionError(f"{tag}: steps {len(steps)}, cache depths {depths}, logged losses "
                              f"{logged}")
     if not all(os.path.exists(f) for f in files) or \
-            os.listdir(os.path.join(out, "checkpoints")) != ["7"]:
+            os.listdir(os.path.join(out, "checkpoints")) != ["2"]:
         raise AssertionError(f"{tag}: an output is missing")
     if not test["batches"] == 4 or not test["l1"] == test["l1"]:
         raise AssertionError(f"{tag}: the test run {test}")
@@ -3203,7 +3258,41 @@ def cli_train_stage2(dev, phase11_ms, size=(1296, 2304), extra=()):
         raise AssertionError(f"{tag}: launches differ from what the config implies")
     return {"launches": fit_launches, "wall": wall_per_step(seen["times"]),
             "step": sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
-            "item": host["items"] / items}
+            "item": host["items"] / items, "first": steps[0]["metrics"],
+            "rowwise": rowwise}
+
+
+def first_batch_losses(roll, start, cfg, dev):
+    """The stage-2 loss of the train split's first global batch (items 0
+    and 1) on the trainable weights `start`, without autograd and without
+    the cache: (as one batch of 2, the mean of the two rows as batches of
+    1). The two differ only by the card's bf16 rounding of differently
+    shaped products, the difference two data ranks make; the second is
+    what two data ranks compute."""
+    import torch
+    from audio_motion_avatar_tpu_torch.data.containers import collate_video_batches
+    from audio_motion_avatar_tpu_torch.data.factory import DatasetFactory
+    from audio_motion_avatar_tpu_torch.data.synthetic import to_device
+    from audio_motion_avatar_tpu_torch.training import stage2
+
+    model = roll.model
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k in start:
+                p.copy_(start[k])
+    ds = DatasetFactory.create_dataset(cfg, "train", dev)
+    items = [ds[0], ds[1]]
+
+    def loss(rows):
+        ref = to_device(collate_video_batches([items[i][0] for i in rows]), dev)
+        tgt = to_device(collate_video_batches([items[i][1] for i in rows]), dev)
+        tri, smpl = stage2._zero_tokens(model.cfg, len(rows), dev)
+        with torch.no_grad():
+            return float(stage2.stage2_loss(model, roll.statics, ref, tgt, tri, smpl,
+                                            torch.zeros(len(rows), device=dev),
+                                            model.cfg)[0])
+
+    return loss([0, 1]), (loss([0]) + loss([1])) / 2
 
 
 @contextlib.contextmanager
@@ -3218,8 +3307,8 @@ def train_handoffs(into):
     orig, orig_iter = factory.DatasetFactory.create_dataloader, prefetch.NativePrefetcher.__iter__
     into.update(times=[], items=[], ring="none")
 
-    def create(cfg, split="train", device="cpu"):
-        loader = orig(cfg, split, device)
+    def create(cfg, split="train", device="cpu", **kw):
+        loader = orig(cfg, split, device, **kw)
         if split != "train":
             return loader
         pf = loader.dataset if hasattr(loader, "batch_size") else loader
@@ -3253,8 +3342,8 @@ def wall_per_step(times):
 
 def cli_train_stage2_workers(dev, phase14, size=(1296, 2304), extra=()):
     """14b: phase 14's fit again (its checkpoint and overrides) with
-    training.dataloader.num_workers=4, on the clip's first 22 frames (4
-    items, 2 steps; the script's time limit): the TED reader's items come
+    training.dataloader.num_workers=4, on the clip (22 frames, 4 items, 2
+    steps): the TED reader's items come
     through the prefetch ring's 4 threads, ahead of the steps, in the order
     they complete. Checks that the native ring ran (built with g++ from
     csrc/prefetch.cpp), that every item of the clip was handed on exactly
@@ -3271,13 +3360,12 @@ def cli_train_stage2_workers(dev, phase14, size=(1296, 2304), extra=()):
 
     tag = "train CLI, stage 2, workers"
     config = os.path.join(PORT_CONFIGS, "config_stage_2.yaml")
-    root, out = os.path.join(CLI_DIR, "ted_22"), os.path.join(CLI_DIR, "stage2_workers")
-    ted_prefix(os.path.join(CLI_DIR, "ted"), root, 22)
+    root, out = os.path.join(CLI_DIR, "ted"), os.path.join(CLI_DIR, "stage2_workers")
     over = ["model.compute_dtype=bfloat16", f"dataset.root_dir={root}",
             f"dataset.wav2vec2_model_path={os.path.join(DEMO_DIR, 'wav2vec2_base')}",
             "training.max_epochs=1", "training.cache_replacement_prob=1.0",
             "training.logging.log_every_n_steps=1", f"training.output_dir={out}",
-            "training.dataloader.num_workers=4", *extra]
+            "training.dataloader.num_workers=4", CLI_VIT, *extra]
     shutil.rmtree(out, ignore_errors=True)
     host, seen = {}, {}
     peak_memory(dev, reset=True)
@@ -3411,8 +3499,8 @@ def reference_checkpoint(path, manifest, seed=0):
 
 def import_demo(dev, manifest=None, extra=()):
     """15: `main2.main --mode demo --checkpoint FILE` at full width: phase
-    12's demo (config_stage_2.yaml, the synthetic dataset at 512^2, 2
-    chunks of B = 2 x 6 frames, bf16, the tone and the seeded
+    12's demo (config_stage_2.yaml, the synthetic dataset at 512^2, 1
+    chunk of B = 2 x 6 frames (2 until phase 18's cut), bf16, the tone and the seeded
     Wav2Vec2-base) from a reference Lightning .ckpt of the released stage-2
     checkpoint's 649 tensors (tests/fixtures/ted_full_ckpt.manifest.json,
     seeded by reference_checkpoint), on the synthetic body with the
@@ -3454,10 +3542,10 @@ def import_demo(dev, manifest=None, extra=()):
     # the manifest's SMPL-X encoder takes sampled image features (vertex_emb
     # 128 wide, fc_pos 259 inputs), which config_stage_2.yaml turns off
     over = ["dataset.type=SyntheticDataset", "dataset.image_size=[512,512]",
-            "dataset.length=14", f"dataset.wav2vec2_model_path={w2v}",
+            "dataset.length=2", f"dataset.wav2vec2_model_path={w2v}",
             "model.compute_dtype=bfloat16", f"model.triplane_net.smplx_model_path={body_path}",
             "model.triplane_net.sample_feature=true", f"training.output_dir={IMPORT_DIR}",
-            *extra]
+            CLI_VIT, *extra]
     t0 = time.perf_counter()
     body = release_body(body_path)
     sd, write_s = reference_checkpoint(ckpt, manifest)
@@ -3478,8 +3566,8 @@ def import_demo(dev, manifest=None, extra=()):
         got["partial"], got["report"] = read(path, ac_, stage)
         return got["partial"], got["report"]
 
-    def merge_spy(model, partial):
-        got["mismatches"] = merge(model, partial)
+    def merge_spy(model, partial, **kw):
+        got["mismatches"] = merge(model, partial, **kw)
         got["seconds"] = time.perf_counter() - got["t0"]
         return got["mismatches"]
 
@@ -3607,7 +3695,8 @@ def cli_train_idol(dev, phase10_ms, size=IDOL_SIZE, extra=()):
     over = ["model.compute_dtype=bfloat16", f"dataset.cache_path_train=[{train}]",
             f"dataset.cache_path_val=[{val}]", "training.max_epochs=1",
             f"dataset.image_size=[{size[0]},{size[1]}]",
-            "training.logging.log_every_n_steps=1", f"training.output_dir={out}", *extra]
+            "training.logging.log_every_n_steps=1", f"training.output_dir={out}", CLI_VIT,
+            *extra]
     t0 = time.perf_counter()
     ckpt = os.path.join(CLI_DIR, "idol_ckpt")
     start = cli_checkpoint(1, config, over, ckpt)
@@ -3995,6 +4084,532 @@ def run_render_forms(dev, phase4_fps, phase7_ms, phase10_ms):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 18a / 18: parallelism (parallel/): ranks as processes of this script
+# ---------------------------------------------------------------------------
+
+PAR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parallel")
+PAR_COUNTERS = ("attention", "attention_bwd", "composite_tiles", "composite_tiles_bwd")
+
+
+def free_port():
+    """A free TCP port on localhost (the rendezvous of a launched group)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_procs(name, argvs, envs):
+    """One process of `python3 -m ...` / this script a rank: argvs[r] its
+    arguments, envs[r] its extra environment; output into build/parallel/
+    <name>.<rank>.log. -> [(Popen, log path)]."""
+    os.makedirs(PAR_DIR, exist_ok=True)
+    procs = []
+    for r, (argv, env) in enumerate(zip(argvs, envs)):
+        log = os.path.join(PAR_DIR, f"{name}.{r}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen([sys.executable, *argv], stdout=f,
+                                           stderr=subprocess.STDOUT,
+                                           env=dict(os.environ, **env),
+                                           cwd=os.path.dirname(os.path.abspath(__file__))),
+                          log))
+    return procs
+
+
+def wait_procs(procs, timeout, name):
+    """Wait for every rank (killing what outlives `timeout` seconds from
+    now); -> [(return code, the log's text)]."""
+    deadline, out = time.perf_counter() + timeout, []
+    try:
+        for p, log in procs:
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rc = p.wait()
+                print(f"[{name}] {log}: killed after its time limit", flush=True)
+            with open(log) as f:
+                out.append((rc, f.read()))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def ranks_ok(results, name):
+    """Fail (with each rank's last lines) unless every rank exited 0."""
+    if any(rc != 0 for rc, _ in results):
+        raise AssertionError(f"{name}: " + " | ".join(
+            f"rank {r} rc {rc}: {text[-3000:]}" for r, (rc, text) in enumerate(results)))
+
+
+@contextlib.contextmanager
+def head_shapes(into):
+    """The (B, H, S, D) of every query handed to kernel A's entry
+    (transformer.attention_autograd: the audio, predictor and fusion
+    transformers and the 64-wide PTv3 patches) while the block runs."""
+    import audio_motion_avatar_tpu_torch.models.transformer as tf
+    orig = tf.attention_autograd
+
+    def spy(q, *args, **kw):
+        into.append(tuple(q.shape))
+        return orig(q, *args, **kw)
+
+    tf.attention_autograd = spy
+    try:
+        yield into
+    finally:
+        tf.attention_autograd = orig
+
+
+def load_rank(d, r):
+    import torch
+    return torch.load(os.path.join(d, f"out.{r}.pt"), weights_only=False)
+
+
+def small_parallel_cfg(stage):
+    """18a's tiny configuration (32x32), phase 9's bf16 one: 64-wide heads
+    so that A and A-bwd run on the local heads (2 heads, 1 a model rank)."""
+    import dataclasses
+
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
+    return dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)),
+                               smplx_transformer_head_dim=64, cross_transformer_head_dim=64,
+                               audio_transformer_head_dim=64)
+
+
+def small_parallel_batches(stage, cfg, d):
+    """Phase 9's first global batch of 2: stage 1 one reference view and 3
+    test views a row, stage 2 its reference and target frames with audio."""
+    from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
+    ref, tgt = 0, 1
+    size = tuple(cfg.image_size)
+    if stage == 1:
+        return (to_device(make_batch(2, 1, size, seed=ref), d),
+                to_device(make_batch(2, 3, size, seed=tgt), d))
+    return (to_device(make_batch(2, cfg.triplane_input_frames, size, seed=ref), d),
+            to_device(make_batch(2, cfg.triplane_output_frames, size, seed=tgt,
+                                 with_audio=True, audio_dim=cfg.audio_feature_dim), d))
+
+
+def small_parallel_step(stage, dev, dtype, mesh=None):
+    """One tiny train step of small_parallel_cfg(stage) on this rank's rows
+    (mesh), seeded weights: (metrics, the averaged gradients gathered whole,
+    fp32 on the CPU, the launches, kernel A's (B, H, S, D) shapes)."""
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import smplx as smplx_ops
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.parallel import mesh as pmesh
+    from audio_motion_avatar_tpu_torch.train import build_trainer
+    from audio_motion_avatar_tpu_torch.training.train_state import OptimConfig
+    from audio_motion_avatar_tpu_torch.weights import perturb_heads
+
+    cfg = small_parallel_cfg(stage)
+    body = smplx_ops.synthetic_model(seed=0, num_verts=300)
+    # seeded_trainer's visible weights, made on the whole model (the CPU),
+    # then loaded into the trainer, which cuts them over the mesh
+    whole = build_trainer(stage, cfg, device="cpu", dtype=dtype, smplx_model=body).model
+    perturb_heads(whole, seed=1, std=0.05)
+    if stage == 2:
+        tame_seeded_weights(whole)
+    visible_heads(whole)
+    tr = build_trainer(stage, cfg, device=dev, dtype=dtype, smplx_model=body,
+                       optim=OptimConfig(learning_rate=1e-3, accumulate_steps=1),
+                       state_dict=whole.state_dict(), mesh=mesh)
+    del whole
+    ref, tgt = small_parallel_batches(stage, cfg, dev)
+    if mesh is not None:
+        ref, tgt = pmesh.batch_rows(ref, mesh), pmesh.batch_rows(tgt, mesh)
+    shapes = []
+    fns = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    for fn in fns:
+        fn.launches = 0
+    with head_shapes(shapes):
+        m = tr.step(ref, tgt, 0)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    grads = tr.state.gather(tr.state.grads())
+    return (m, {k: v.float().cpu() for k, v in grads.items()}, launches, shapes)
+
+
+def rank_main(argv):
+    """A rank of 18a's group: python3 chip_smoke.py --rank DIR RANK WORLD
+    BACKEND DEVICE: joins through DIR/rendezvous on DEVICE (the card's
+    cuda:0), runs the tiny DP (2, 1) and TP (1, 2) steps of both stages
+    (gloo) or the NCCL probe (nccl: two ranks of one communicator on one
+    card), saves DIR/out.RANK.pt."""
+    import torch
+    import torch.distributed as dist
+    d, rank, world, backend = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    dev = torch.device(argv[4])
+    torch.set_num_threads(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from audio_motion_avatar_tpu_torch.parallel import mesh as pmesh
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(d, 'rendezvous')}",
+                            rank=rank, world_size=world)
+    out = {}
+    if backend == "nccl":
+        t = torch.ones(4, device=dev)
+        try:
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out["nccl"] = f"no error: the all-reduce gave {t.tolist()}"
+        except Exception as e:            # the probe's finding, reported
+            out["nccl"] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:400]}"
+        torch.save(out, os.path.join(d, f"out.{rank}.pt"))
+        os._exit(0)
+    for stage in (1, 2):
+        for shape in ((2, 1), (1, 2)):
+            mesh = pmesh.make_mesh(*shape)
+            m, g, launches, shapes = small_parallel_step(stage, dev, torch.bfloat16, mesh)
+            out[(stage, shape)] = dict(metrics=m, grads=g, launches=launches, shapes=shapes)
+    torch.save(out, os.path.join(d, f"out.{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def check_small_parallel(dev, bounds9):
+    """18a: tiny stage-1 and stage-2 train steps over (2, 1) and (1, 2), two
+    processes on the one card joined by gloo with CUDA tensors (NCCL refuses
+    two ranks of one communicator on one card: a probe pair shows it, the
+    error printed once), each held to the one-process step on the card:
+    loss |diff| and the gathered gradients' relative distance within 3x the
+    largest distance between the CPU's bf16 step (attention rounded as the
+    kernels round) and its fp32 step over three draws of the batch, phase
+    9's rule, set before the ranks' numbers are read: phase 9's own
+    (bounds9: the same configurations, weights and batches of 2); launches
+    as the local batch implies, kernel A on the local heads. Then `main2 --mode train`
+    on config_tiny.yaml at world size 1 over NCCL (training.multihost with
+    torchrun's variables). Returns the launches of the ranks' steps (summed
+    over ranks) and the stage-2 gradients' bound (relative), for phase 18."""
+    import shutil
+
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()      # the card's memory for the ranks
+    d = os.path.join(PAR_DIR, "small")
+    probe_d = os.path.join(PAR_DIR, "nccl_probe")
+    for p in (d, probe_d):
+        shutil.rmtree(p, ignore_errors=True)
+        os.makedirs(p)
+    me = os.path.abspath(__file__)
+    on = "cuda:0" if dev.type == "cuda" else "cpu"
+    probe = start_procs("nccl_probe", [[me, "--rank", probe_d, str(r), "2", "nccl", on]
+                                       for r in range(2)], [{}, {}])
+    ranks = start_procs("small", [[me, "--rank", d, str(r), "2", "gloo", on]
+                                  for r in range(2)], [{}, {}])
+    out1 = os.path.join(PAR_DIR, "nccl_world1")
+    shutil.rmtree(out1, ignore_errors=True)
+    nccl1 = start_procs("nccl_world1", [[
+        "-m", "audio_motion_avatar_tpu_torch.main2", "--device", str(dev), "--config",
+        os.path.join(PORT_CONFIGS, "config_tiny.yaml"), "--mode", "train",
+        f"training.output_dir={out1}", "training.multihost=true"]],
+        [{"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+          "MASTER_PORT": str(free_port())}])
+    try:
+        # the bounds (CPU) and the one-process steps (card) meanwhile
+        tol, ref = bounds9, {}
+        for stage in (1, 2):
+            ref[stage] = small_parallel_step(stage, dev, torch.bfloat16)
+            print(f"[small parallel] stage {stage}: bound (phase 9's: 3x the CPU's bf16 vs fp32 "
+                  f"over three draws) loss {tol[stage][0]:.3e}, "
+                  f"gradients relative {tol[stage][1]:.3e}; "
+                  f"one-process card step loss {ref[stage][0]['loss']:.6f} grad_norm "
+                  f"{ref[stage][0]['grad_norm']:.6f}, launches {ref[stage][2]}", flush=True)
+    finally:
+        probe_res = wait_procs(probe, 90, "nccl probe")
+        rank_res = wait_procs(ranks, 300, "small parallel")
+        nccl1_res = wait_procs(nccl1, 300, "NCCL world 1")
+    # the probe is an observation of NCCL's, not a check of the port's
+    said = sorted({load_rank(probe_d, r)["nccl"] for r in range(2)
+                   if os.path.exists(os.path.join(probe_d, f"out.{r}.pt"))})
+    print(f"[small parallel] NCCL, two ranks of one communicator on one card: "
+          f"{said[0] if said else 'no answer'} (exit codes "
+          f"{[rc for rc, _ in probe_res]})", flush=True)
+    ranks_ok(rank_res, "small parallel")
+    ranks_ok(nccl1_res, "NCCL world 1")
+    log1 = nccl1_res[0][1]
+    if f"backend {'nccl' if dev.type == 'cuda' else 'gloo'}" not in log1 or \
+            "[main2] training done" not in log1:
+        raise AssertionError(f"NCCL world 1: {log1[-2000:]}")
+    print("[small parallel] main2 --mode train at world size 1 over NCCL: "
+          + next(line for line in log1.splitlines() if "[distributed]" in line), flush=True)
+    total = {}
+    outs = [load_rank(d, r) for r in range(2)]
+    for stage in (1, 2):
+        m0, g0, l0, _ = ref[stage]
+        cfg = small_parallel_cfg(stage)
+        T_in, T_out = (1, 3) if stage == 1 else (cfg.triplane_input_frames,
+                                                 cfg.triplane_output_frames)
+        for shape in ((2, 1), (1, 2)):
+            B = 2 // shape[0]
+            want = train_launches(cfg, stage, B, T_in, T_out)
+            for r, o in enumerate(outs):
+                got = o[(stage, shape)]
+                dl = abs(got["metrics"]["loss"] - m0["loss"])
+                dg = grads_distance(got["grads"], g0)
+                heads = sorted({s[1] for s in got["shapes"]})
+                print(f"[small parallel] stage {stage} mesh {shape} rank {r}: loss "
+                      f"{got['metrics']['loss']:.6f} (|diff| {dl:.3e}, tol {tol[stage][0]:.3e}), "
+                      f"grad_norm {got['metrics']['grad_norm']:.6f} (one process "
+                      f"{m0['grad_norm']:.6f}), gradients relative {dg:.3e} (tol "
+                      f"{tol[stage][1]:.3e}); launches {got['launches']} expected "
+                      f"{ {k: v for k, v in want.items() if k in PAR_COUNTERS} }; kernel A "
+                      f"heads a launch {heads}", flush=True)
+                check_launches(f"small parallel stage {stage} {shape}",
+                               got["launches"], {k: want[k] for k in PAR_COUNTERS})
+                if not (dl <= tol[stage][0] and dg <= tol[stage][1]):
+                    raise AssertionError(f"small parallel stage {stage} mesh {shape} rank {r} "
+                                         "disagrees with the one-process step")
+                for k, v in got["launches"].items():
+                    total[k] = total.get(k, 0) + v
+    return total, tol[2][1]
+
+
+def cli_rank_main(argv):
+    """A rank of phase 18: python3 chip_smoke.py --cli-rank OUT SERVE_DIR --
+    <main2 arguments>, started with torchrun's variables: main2.main (its
+    own maybe_initialize joins the group) with the four kernels counted,
+    the gradient all-reduce timed and the peak memory read; then, on the
+    group main2 made, the serving scenario of SERVE_DIR (one request over a
+    (1, world) mesh). Saves OUT.RANK.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from audio_motion_avatar_tpu_torch import main2
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
+    from audio_motion_avatar_tpu_torch.parallel import mesh as pmesh
+
+    out, serve_dir, args = argv[0], argv[1], argv[argv.index("--") + 1:]
+    rank = int(os.environ["RANK"])
+    dev = torch.device(args[args.index("--device") + 1])
+    cuda = dev.type == "cuda"
+    reduce_s, average = [], pmesh.average_over_data
+
+    def timed(tensors, mesh):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = average(tensors, mesh)
+        if cuda:
+            torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+        return res
+
+    pmesh.average_over_data = timed
+    fns = (at.attention, at.attention_bwd, st.composite_tiles, st.composite_tiles_bwd)
+    for fn in fns:
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    summary = main2.main(args)
+    res = {"steps": summary["steps"], "launches": {fn.__name__: fn.launches for fn in fns},
+           "reduce_s": reduce_s, "peak": torch.cuda.max_memory_allocated() if cuda else 0}
+    pmesh.average_over_data = average
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res["serve"] = serve_rank(serve_dir, dist.get_world_size(), dev)
+    torch.save(res, f"{out}.{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_rank(d, world, dev):
+    """Phase 18(b) on one rank: phase 4's serving model (its config and
+    seeded weights, bf16) over a (1, world) mesh, phase 4's tokens and
+    first request from d/inputs.pt: the frames (rank 0), the ms of the
+    request, kernel A's launches and their (B, H, S, D) shapes."""
+    import torch
+    import torch.distributed as dist
+    from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.parallel import mesh as pmesh
+    from audio_motion_avatar_tpu_torch.serve import build_rollout
+
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    t0 = time.perf_counter()
+    roll = build_rollout(inp["cfg"], device=dev, state_dict=inp["state_dict"],
+                         smplx_model=inp["body"], mesh=pmesh.make_mesh(1, world))
+    build_s = time.perf_counter() - t0
+    tri, smpl, audio = (inp[k].to(dev) for k in ("tri", "smpl", "audio"))
+    cams = {k: v.to(dev) for k, v in inp["cams"].items()}
+    shapes = []
+    at.attention.launches = 0
+    dist.barrier()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad(), head_shapes(shapes):
+        frames, next_tri, next_smpl, _ = roll(tri, smpl, audio, cams)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    main = dist.get_rank() == 0
+    return {"frames": frames.float().cpu() if main else None, "ms": ms,
+            "next": (next_tri.float().cpu(), next_smpl.float().cpu()) if main else None,
+            "build_s": build_s, "launches": at.attention.launches, "shapes": shapes,
+            "sharded": sum(p.numel() for k, p in roll.model.named_parameters()
+                           if k in pmesh.model_parallel_table(roll.model)),
+            "peak": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0}
+
+
+def serving_inputs(roll, tri, smpl, req, body=None):
+    """Phase 4's serving model and first request for phase 18(b), on the
+    CPU: its config and seeded weights, the body it was built with (None:
+    build_rollout's default), the initial tokens, the request and the frames
+    phase 4's one-process rollout answers it with."""
+    import torch
+    audio, cams = req
+    with torch.no_grad():
+        frames, next_tri, next_smpl, _ = roll(tri, smpl, audio, cams)
+        # the streams one at a time: the card's own rounding of differently
+        # shaped products, the yardstick of phase 18(b)
+        rows = torch.cat([roll(tri[i:i + 1], smpl[i:i + 1], audio[i:i + 1],
+                               {k: v[i:i + 1] for k, v in cams.items()})[0]
+                          for i in range(tri.shape[0])])
+    mean, mx, _, psnr = frames_distance(rows, frames)
+    print(f"[rollout] the request's streams served one at a time against both at once: "
+          f"mean|diff| {mean:.3e}, max|diff| {mx:.3e}, PSNR {psnr:.2f} dB", flush=True)
+    return {"cfg": roll.model.cfg, "body": body, "next_tri": next_tri.float().cpu(),
+            "rows": rows.float().cpu(),
+            "next_smpl": next_smpl.float().cpu(),
+            "state_dict": {k: v.cpu() for k, v in roll.model.state_dict().items()},
+            "tri": tri.cpu(), "smpl": smpl.cpu(), "audio": audio.cpu(),
+            "cams": {k: v.cpu() for k, v in cams.items()}, "frames": frames.float().cpu()}
+
+
+def full_parallel(dev, phase14, serving, grad_bound, extra=()):
+    """18: (a) `main2 --mode train` with training.devices=2 on phase 14's
+    clip (its 22 frames, 2 steps, the YAML's B = 2 global, 1 a rank), two
+    processes on the card started with torchrun's variables and
+    --dist-backend gloo --device cuda:0: the first step's loss and grad_norm
+    held to phase 14's first step on the same global batch: grad_norm
+    within 18a's stage-2 gradient bound (relative), the loss within 3x
+    the relative distance phase 14 measured between that batch's loss as
+    one batch of 2 and as two of 1 (the card's own bf16 rounding of the
+    shapes two data ranks compute), and within 1e-5 of the latter (what the
+    ranks compute, in one process); per rank the ms a step, the gradient
+    all-reduce's seconds a step, the peak memory, the launches (as the local
+    batch implies), the cache depth a step. (b) on the same two processes,
+    one serving request at the serving width over (1, 2) (phase 4's seeded
+    model, tokens and first request): its frames held to phase 4's, mean
+    |diff| <= 1e-2 (frames_close's) and the mean squared difference within
+    3x that of the same request's streams served one at a time in one
+    process (serving_inputs: the card's own rounding of differently shaped
+    products; frames_close's fixed 40 dB is printed, not required: the AR
+    rollout carries a rounding change through its 48 transformer layers),
+    the next token windows' distance, kernel A's launches and shapes a rank
+    (the local heads).
+    The times are correctness context: two ranks share one card and gloo
+    crosses the host. Returns the ranks' launches (both parts, summed)."""
+    import shutil
+
+    import torch
+    from audio_motion_avatar_tpu_torch.configs import ConfigLoader
+    from audio_motion_avatar_tpu_torch.configs.build import build_avatar_config
+
+    tag = "full parallel"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()      # the card's memory for the ranks
+    config = os.path.join(PORT_CONFIGS, "config_stage_2.yaml")
+    root, out = os.path.join(CLI_DIR, "ted"), os.path.join(PAR_DIR, "stage2_dp")
+    serve_dir = os.path.join(PAR_DIR, "serve")
+    for p in (out, serve_dir):
+        shutil.rmtree(p, ignore_errors=True)
+    os.makedirs(serve_dir)
+    torch.save(serving, os.path.join(serve_dir, "inputs.pt"))
+    over = ["model.compute_dtype=bfloat16", f"dataset.root_dir={root}",
+            f"dataset.wav2vec2_model_path={os.path.join(DEMO_DIR, 'wav2vec2_base')}",
+            "training.max_epochs=1", "training.cache_replacement_prob=1.0",
+            "training.logging.log_every_n_steps=1", f"training.output_dir={out}",
+            "training.devices=2", CLI_VIT, *extra]
+    port = str(free_port())
+    me = os.path.abspath(__file__)
+    res_base = os.path.join(PAR_DIR, "stage2_dp_rank")
+    t0 = time.perf_counter()
+    procs = start_procs("stage2_dp", [[me, "--cli-rank", res_base, serve_dir, "--",
+                                       "--device", "cuda:0" if dev.type == "cuda" else "cpu",
+                                       "--dist-backend", "gloo",
+                                       "--config", config, "--mode", "train", "--checkpoint",
+                                       os.path.join(CLI_DIR, "stage2_ckpt"), *over]
+                                      for _ in range(2)],
+                        [{"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r),
+                          "MASTER_ADDR": "localhost", "MASTER_PORT": port} for r in range(2)])
+    results = wait_procs(procs, 600, tag)
+    wall = time.perf_counter() - t0
+    ranks_ok(results, tag)
+    outs = [torch.load(f"{res_base}.{r}.pt", weights_only=False) for r in range(2)]
+    ac = build_avatar_config(ConfigLoader.load_config(config, over))
+    first = phase14["first"]
+    batched, rowwise = phase14["rowwise"]
+    # (at least 1e-6: float32's rounding of the loss itself, ~16 units)
+    bound = (max(3 * abs(rowwise - batched) / abs(batched), 1e-6), grad_bound)
+    total = {}
+    for r, o in enumerate(outs):
+        steps = o["steps"]
+        m = steps[0]["metrics"]
+        dl = abs(m["loss"] - first["loss"]) / abs(first["loss"])
+        dg = abs(m["grad_norm"] - first["grad_norm"]) / abs(first["grad_norm"])
+        drow = abs(m["loss"] - rowwise) / abs(rowwise)
+        want = add_launches((train_launches(ac, 2, 1, 2, 6), len(steps)))
+        want = {k: want[k] for k in PAR_COUNTERS}
+        print(f"[{tag}] (a) rank {r}: {len(steps)} steps, losses "
+              f"{[round(st['metrics']['loss'], 5) for st in steps]}, cache depth a step "
+              f"{[st['cache_iter'] for st in steps]}; first step loss {m['loss']:.6f} grad_norm "
+              f"{m['grad_norm']:.6f} against phase 14's {first['loss']:.6f} "
+              f"{first['grad_norm']:.6f} (relative {dl:.3e}, {dg:.3e}; bounds {bound[0]:.3e}, "
+              f"{bound[1]:.3e}); against the one-process row-wise loss {rowwise:.6f} relative "
+              f"{drow:.3e} (tol 1e-5); ms a step {[round(1e3 * st['seconds'], 1) for st in steps]}, "
+              f"gradient all-reduce {[round(s, 3) for s in o['reduce_s']]} s a step; peak "
+              f"memory {o['peak'] / 2**30:.2f} GiB; launches {o['launches']} expected {want}",
+              flush=True)
+        check_launches(f"{tag} rank {r}", o["launches"], want)
+        if len(steps) != 2 or not (dl <= bound[0] and dg <= bound[1] and drow <= 1e-5):
+            raise AssertionError(f"{tag} (a) rank {r}: the first step disagrees with phase 14's")
+        for k, v in o["launches"].items():
+            total[k] = total.get(k, 0) + v
+    tb = os.listdir(os.path.join(out, "tb"))
+    if len(tb) != 1 or os.listdir(os.path.join(out, "checkpoints")) != ["2"]:
+        raise AssertionError(f"{tag} (a): event files {tb}, checkpoints "
+                             f"{os.listdir(os.path.join(out, 'checkpoints'))}")
+    for r, o in enumerate(outs):
+        s = o["serve"]
+        heads = sorted({(sh[1], sh[2]) for sh in s["shapes"]})
+        print(f"[{tag}] (b) rank {r}: serving model over (1, 2) built in {s['build_s']:.1f} s, "
+              f"{s['sharded']} parameters sharded over 'model'; one request {s['ms']:.1f} ms "
+              f"(the first on this model); kernel A launches {s['launches']}, (heads, sequence) "
+              f"a launch {heads}; peak memory {s['peak'] / 2**30:.2f} GiB", flush=True)
+        if s["launches"] <= 0 or s["sharded"] <= 0:
+            raise AssertionError(f"{tag} (b) rank {r}: no kernel A launch or nothing sharded")
+        total["attention"] = total.get("attention", 0) + s["launches"]
+    frames = outs[0]["serve"]["frames"]
+    for name, got in zip(("triplane", "SMPL-X"), outs[0]["serve"]["next"]):
+        want = serving[f"next_{'tri' if name == 'triplane' else 'smpl'}"]
+        print(f"[{tag}] (b) the next {name} token window against phase 4's: max|diff| "
+              f"{float((got - want).abs().max()):.3e} of max|want| "
+              f"{float(want.abs().max()):.3e}", flush=True)
+    frames_ok(frames, f"{tag} (b)")
+    got = frames_distance(frames, serving["frames"])
+    own = frames_distance(serving["rows"], serving["frames"])
+    print(f"[{tag}] (b) frames over (1, 2) against phase 4's one-process request: mean|diff| "
+          f"{got[0]:.3e} (tol 1e-2), max|diff| {got[1]:.3e}, PSNR {got[3]:.2f} dB; the "
+          f"streams served one at a time in one process against it: mean|diff| {own[0]:.3e}, "
+          f"max|diff| {own[1]:.3e}, PSNR {own[3]:.2f} dB; frames_close's 40 dB "
+          f"{'held' if got[3] >= 40 else 'not held'}", flush=True)
+    if not (got[0] <= 1e-2 and got[2] <= 3 * max(own[2], 1e-8)):
+        raise AssertionError(f"{tag} (b): the frames over (1, 2) differ from phase 4's beyond "
+                             "3x the card's own rounding of differently shaped products")
+    print(f"[{tag}] two processes on one card, gloo across the host: {wall:.1f} s in all "
+          f"(correctness context, not speed)", flush=True)
+    return total
+
+
 def phase(name, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4053,6 +4668,7 @@ def main():
               sys.argv[sys.argv.index("--parent") + 1])
     phase("3 small", check_small, dev)
     roll, state, fps4 = phase("4 rollout", run_rollout, dev)
+    serving = serving_inputs(*state)
     phase("5 profile", profile_rollout, *state)
     wino, wstate, _ = phase("4b serve, Winograd + splash", run_rollout, dev,
                          tag="serve, Winograd + splash", upsampler_conv="winograd",
@@ -4070,7 +4686,7 @@ def main():
     for got, want, view in zip(gn_frames, rec_frames, ("reference", "novel")):
         frames_close(got, want, f"reconstruct, winograd_gn {view}")
     phase("8 serve from a reference", serve_from_reference, dev)
-    phase("9 small train", check_small_train, dev)
+    bounds9 = phase("9 small train", check_small_train, dev)
     (train1, ms1, peak1), (train2, ms2, _) = (phase("10 train stage 1", run_train, dev, 1),
                                               phase("11 train stage 2", run_train, dev, 2))
     train_gn, ms_gn, peak_gn = phase("10b train stage 1, winograd_gn", run_train, dev, 1,
@@ -4089,6 +4705,9 @@ def main():
     idol16 = phase("16 train CLI, IDOL", cli_train_idol, dev, ms1)
     small17 = phase("17a small render forms", check_small_forms, dev)
     forms17 = phase("17 render forms", run_render_forms, dev, fps4, ms7, ms1)
+    small18, grad18 = phase("18a small parallel", check_small_parallel, dev, bounds9)
+    full18 = phase("18 parallel", full_parallel, dev, p14, serving, grad18)
+    del serving
 
     # each kernel's launches on its path: S and Q in the serving rollout
     # (phase 4), K1 and A in the reconstruction (phase 7), K2 and A-bwd in
@@ -4112,6 +4731,9 @@ def main():
                      ("splat_tiles_bwd", "composite_tiles_bwd"),
                      ("attention_bwd", "attention_bwd")):
         launches[name] += small17.get(fn, 0) + forms17[fn]
+        # phases 18a and 18: the ranks' launches, each rank's counted in its
+        # own process from 0 around its path
+        launches[name] += small18.get(fn, 0) + full18.get(fn, 0)
     pallas = "audio_motion_avatar_tpu/"
     sources = {"splat_segments": ("splat_segments.cu", pallas + "ops/splat_pallas.py:503"),
                "quad_rows": ("quad_rows.cu", pallas + "ops/triplane.py:506"),
@@ -4149,4 +4771,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        sys.exit(rank_main(sys.argv[sys.argv.index("--rank") + 1:]))
+    if "--cli-rank" in sys.argv:
+        sys.exit(cli_rank_main(sys.argv[sys.argv.index("--cli-rank") + 1:]))
     sys.exit(main())

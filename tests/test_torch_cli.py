@@ -21,8 +21,8 @@ write.
 - --checkpoint FILE imports a reference Lightning .ckpt into main's
   stage-1 model (test mode evaluates the imported heads) and main2's
   stage-2 model; a file that is no checkpoint raises clearly.
-- Without --device cpu, every mode asks for the card and raises here;
-  parallel or multi-host runs (item 7) raise.
+- Without --device cpu, every mode asks for the card and raises here.
+  (Parallel and multi-process runs: tests/test_torch_parallel*.py.)
 """
 
 import os
@@ -199,12 +199,8 @@ def test_cli_defaults_to_the_card(cli, mode, tmp_path):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--checkpoint", __file__], ValueError, "not a torch checkpoint"),
-    (["training.devices=2"], NotImplementedError, "item 7"),
-    (["training.model_parallel=2"], NotImplementedError, "item 7"),
-    (["training.multihost=true"], NotImplementedError, "item 7"),
     (["--checkpoint", "no_such_checkpoint.ckpt"], FileNotFoundError, "no_such_checkpoint"),
-], ids=["extra0-not a torch checkpoint", "extra1-item 7", "extra2-item 7", "extra3-item 7",
-        "extra4-missing file"])
+], ids=["extra0-not a torch checkpoint", "extra4-missing file"])
 def test_main_refusals_name_the_roadmap_item(extra, error, match, tmp_path):
     with pytest.raises(error, match=match):
         main.main(["--device", "cpu", "--config", TINY, "--mode", "train",

@@ -213,22 +213,13 @@ def _cli(*extra):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--mode", "train", "training.devices=2"], NotImplementedError, "item 7"),
     (["--mode", "test", "--checkpoint", __file__], ValueError, "not a torch checkpoint"),
     (["--mode", "demo", "--checkpoint", __file__], ValueError, "not a torch checkpoint"),
-    (["--mode", "demo", "training.multihost=true"], NotImplementedError, "item 7"),
 ])
 def test_main2_refusals_name_the_roadmap_item(argv, error, match):
     from audio_motion_avatar_tpu_torch import main2
     with pytest.raises(error, match=match):
         main2.main(_cli(*argv))
-
-
-def test_main2_refuses_multihost_environment(monkeypatch):
-    from audio_motion_avatar_tpu_torch import main2
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main2.main(_cli("--mode", "demo"))
 
 
 def test_main2_defaults_to_the_card():

@@ -4,7 +4,8 @@ machine lacks.
 A fresh interpreter whose import system refuses jax, flax, orbax, the JAX
 package, transformers, safetensors, yaml, cv2, PIL, tensorboard and wandb
 imports every module of audio_motion_avatar_tpu_torch (main, main2, the
-trainer, the THuman and TED readers and the image module included), loads
+trainer, the THuman and TED readers, the image module and parallel/
+included), loads
 config_stage_2.yaml, builds the tiny config and runs the tiny demo on the
 CPU (its mp4s skipped without cv2, its PNG frames written), then one
 fast_dev_run of main --mode train on a THuman-layout fixture and of main2
@@ -48,7 +49,9 @@ CHILD = textwrap.dedent("""
         importlib.import_module(name)
     for new in ("main", "main2", "training.trainer", "data.thuman", "data.speech",
                 "utils.images", "training.torch_import", "data.idol", "data.prefetch",
-                "ops.sh", "ops.mesh_utils", "utils.lpips", "utils.profiling"):
+                "ops.sh", "ops.mesh_utils", "utils.lpips", "utils.profiling",
+                "parallel.distributed", "parallel.mesh", "parallel.collectives",
+                "parallel.tensor"):
         assert "audio_motion_avatar_tpu_torch." + new in names, names
 
     from audio_motion_avatar_tpu_torch.configs import ConfigLoader

@@ -212,13 +212,6 @@ def test_trainer_bookkeeping_matches_jax(tmp_path, capsys):
                                   np.asarray(Image.open(tmp_path / "jax" / png)))
 
 
-def test_trainer_refuses_parallel_configs():
-    for key in ("devices", "model_parallel"):
-        cfg = Config.wrap({"training": {key: 2, "fast_dev_run": True}})
-        with pytest.raises(NotImplementedError, match="item 7"):
-            Trainer(cfg, None, None, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # 4. Trainer.validate against the JAX one
 # ---------------------------------------------------------------------------
