@@ -38,6 +38,9 @@ KERNELS = {
     "quad_rows": (
         "quad_rows.cu", (),
         {"quad_rows_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I)}),
+    "quad_rows_bwd": (
+        "quad_rows_bwd.cu", (),
+        {"quad_rows_bwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I)}),
     "attention": (
         "attention.cu", (),
         {"attention_launch": (

@@ -17,8 +17,10 @@ there; a train step refuses the four forward-only names. The others (scan
 unroll, the splat and quad-row implementation selectors) compute the same
 function whatever their value and are left out, so none can be set and
 then ignored (configs/build.py drops them from a YAML). The render-path
-knobs (slab sampling, the sparse penultimate level, SH colours, the
-planes without the upsampler) are all read by the renderer. The stage-1 fields
+knobs (quad or slab sampling, the sparse penultimate level, SH colours,
+the planes without the upsampler) are all read by the renderer, and all
+train; of them only splat_segmented (kernel S) is refused by a train step,
+as it has no backward. The stage-1 fields
 (sapiens_encoder, the triplane encoder's transformers) describe the model
 the weights come from and are read by the stage-1 slice.
 """

@@ -9,9 +9,10 @@ The planes and their sampling, as the JAX package's Renderer selects them:
   * sparse (upsample_triplane and upsampler_sparse): the final upsample
     level on covered tiles only (with upsampler_sparse_penultimate the
     level below too), sampled by quad rows (sample_quad: ONE quad-row build,
-    kernel Q, shared by both samplings), else by 2x2 slabs of haloed tiles
-    (sample_slab), else by four taps; the serving form is the quad one,
-    typically with the segmented splat (kernel S);
+    kernel Q, shared by both samplings; under autograd differentiated by
+    kernel Q-bwd), else by 2x2 slabs of haloed tiles (sample_slab), else by
+    four taps; the serving form is the quad one, typically with the
+    segmented splat (kernel S); all three train;
   * dense (upsample_triplane): the full-resolution planes, sampled
     bilinearly (`sample_triplane_nhwc`); sample_quad / sample_slab are
     ignored there, as in the JAX package;
@@ -27,7 +28,9 @@ reference's. The forward returns (frames, gaussians) as the JAX renderer
 does. Under autograd with cfg.frames_scan_remat (the
 JAX package's nn.remat of its frame scan), each frame chunk is recomputed in
 the backward (torch.utils.checkpoint) instead of keeping its upsampler,
-refiner and splat activations.
+refiner and splat activations: in the quad form a chunk builds its quad
+rows twice (Q, the second time in the recompute) and transposes them once
+(Q-bwd).
 """
 
 from __future__ import annotations

@@ -12,9 +12,15 @@ cross-tile taps from the right / bottom / diagonal neighbour tiles, so each
 point reads one 4C row. The 4-tap form gathers the four texels one by one,
 the slab form one 2x2 slab of a tile with a 1 px halo (`tile_halo`). All
 three are gathers: plain torch indexing, except the quad build (kernel Q).
+Training differentiates the quad build through `QuadRowsFunction`: kernel
+Q forward, kernel Q-bwd (csrc/quad_rows_bwd.cu, `quad_rows_bwd`) for the
+tiles' gradient, the exact transpose of the quad layout summed in a fixed
+order (`quad_rows_bwd_plain`); the row gather's backward is autograd's.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -187,32 +193,48 @@ def quad_rows_plain(tiles: torch.Tensor, slot: torch.Tensor,
     return torch.cat([tiles, tap1, tap2, tap3], -1)
 
 
-def quad_rows(tiles: torch.Tensor, slot: torch.Tensor,
-              grid: int) -> torch.Tensor:
+def neighbor_table(slot: torch.Tensor, grid: int, cap: int) -> torch.Tensor:
+    """`neighbor_slots` as one contiguous (FP, cap, 3) int32 table (right,
+    bottom, diagonal), the layout kernel Q reads."""
+    return torch.stack(neighbor_slots(slot, grid, cap), -1).to(torch.int32).contiguous()
+
+
+def incoming_slots(nbr: torch.Tensor, cap: int):
+    """Invert the neighbour table nbr (FP, cap, 3) (`neighbor_table`): the
+    sources of target slot u in direction d (0 right, 1 bottom, 2 diagonal),
+    the slots s with nbr[f, s, d] == u, are src[f, d, start[f, d, u]:
+    start[f, d, u + 1]] in ascending slot order. Returns (src (FP, 3, cap),
+    start (FP, 3, cap + 1)), both int32, built on nbr's device without a
+    host sync (a stable sort of the targets; the counts in integers).
+
+    Not one-to-one: a slot no tile maps to takes tile 0 as its tile (the
+    argmax of an all-false row), so every unused slot has tile 0's
+    neighbours and the slots of tiles 1, grid and grid + 1 collect them."""
+    FP = nbr.shape[0]
+    tgt = nbr.permute(0, 2, 1).long()                            # (FP, 3, cap)
+    src = torch.argsort(tgt, dim=-1, stable=True)
+    counts = torch.zeros(FP, 3, cap + 1, dtype=torch.long, device=nbr.device)
+    counts.scatter_add_(2, tgt, torch.ones_like(tgt))
+    start = torch.cat([torch.zeros_like(counts[..., :1]), counts.cumsum(-1)[..., :cap]], -1)
+    return src.to(torch.int32).contiguous(), start.to(torch.int32).contiguous()
+
+
+def quad_rows(tiles: torch.Tensor, slot: torch.Tensor, grid: int,
+              nbr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel Q on CUDA tensors, its plain version on CPU tensors.
     tiles (FP, cap, T, T, C) + slot (FP, G*G) -> (FP, cap, T, T, 4C),
-    bit-identical either way."""
+    bit-identical either way. nbr: `neighbor_table(slot, grid, cap)` where
+    the caller has it."""
     if tiles.device.type == "cpu":
         return quad_rows_plain(tiles, slot, grid)
-    if tiles.device.type != "cuda":
-        raise ValueError(f"quad_rows: unsupported device {tiles.device}")
-    if tiles.dim() != 5 or tiles.shape[2] != tiles.shape[3] or \
-            not tiles.is_contiguous():
-        raise ValueError("quad_rows: tiles must be contiguous (FP, cap, T, T, C), "
-                         f"got {tuple(tiles.shape)}")
+    _check_quad_args("quad_rows", tiles, slot, grid, 1)
     FP, cap, T, _, C = tiles.shape
-    texel_bytes = C * tiles.element_size()
-    if texel_bytes % 16:
-        raise ValueError(f"quad_rows: a texel ({texel_bytes} B) must be a "
-                         "multiple of 16 bytes")
-    if slot.shape != (FP, grid * grid) or slot.device != tiles.device:
-        raise ValueError(f"quad_rows: slot must be ({FP}, {grid * grid}) on "
-                         f"{tiles.device}, got {tuple(slot.shape)}")
-    nbr = torch.stack(neighbor_slots(slot, grid, cap), -1).to(torch.int32).contiguous()
+    if nbr is None:
+        nbr = neighbor_table(slot, grid, cap)
     out = torch.empty(FP, cap, T, T, 4 * C, dtype=tiles.dtype, device=tiles.device)
     lib = kernels.library("quad_rows")
     rc = lib.quad_rows_launch(tiles.data_ptr(), nbr.data_ptr(), out.data_ptr(),
-                              FP, cap, T, texel_bytes // 16,
+                              FP, cap, T, C * tiles.element_size() // 16,
                               kernels.stream_ptr(tiles.device))
     kernels.check(rc, "quad_rows")
     quad_rows.launches += 1
@@ -222,13 +244,130 @@ def quad_rows(tiles: torch.Tensor, slot: torch.Tensor,
 quad_rows.launches = 0
 
 
+def _check_quad_args(name: str, x: torch.Tensor, slot: torch.Tensor, grid: int,
+                     taps: int) -> None:
+    """The checks of kernels Q / Q-bwd on a CUDA tensor x (FP, cap, T, T,
+    taps * C): contiguous, square tiles, a texel of whole 16-byte vectors,
+    slot (FP, G*G) on x's device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 5 or x.shape[2] != x.shape[3] or not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous (FP, cap, T, T, C) tensor, "
+                         f"got {tuple(x.shape)}")
+    texel_bytes = x.shape[4] // taps * x.element_size()
+    if x.shape[4] % taps or texel_bytes % 16:
+        raise ValueError(f"{name}: a texel ({texel_bytes} B) must be a multiple of 16 bytes")
+    FP = x.shape[0]
+    if slot.shape != (FP, grid * grid) or slot.device != x.device:
+        raise ValueError(f"{name}: slot must be ({FP}, {grid * grid}) on {x.device}, "
+                         f"got {tuple(slot.shape)}")
+
+
+def quad_rows_bwd_plain(dquad: torch.Tensor, slot: torch.Tensor, grid: int,
+                        incoming=None) -> torch.Tensor:
+    """Plain version of kernel Q-bwd, the exact transpose of
+    `quad_rows_plain`: dquad (FP, cap, T, T, 4C) -> dtiles (FP, cap, T, T,
+    C). With q_k tap k's C channels and R(u), B(u), D(u) the slots whose
+    right, bottom, diagonal neighbour is u (`incoming_slots`, or
+    `incoming` given), dt_u[y, x] = ((t1 + t2) + t3) + t4:
+      t1 = q_u[y, x, 0];
+      t2 = q_u[y, x-1, 1] (x >= 1), else S_R(q_s[y, T-1, 1]);
+      t3 = q_u[y-1, x, 2] (y >= 1), else S_B(q_s[T-1, x, 2]);
+      t4 = q_u[y-1, x-1, 3] (y, x >= 1); S_R(q_s[y-1, T-1, 3]) (x = 0);
+           S_B(q_s[T-1, x-1, 3]) (y = 0); S_D(q_s[T-1, T-1, 3]) (both 0);
+    each S a sum from 0 over its sources in ascending slot order. All in
+    float32 (float64 for float64 dquad), rounded once to dquad's dtype: the
+    same bits on every device, and kernel Q-bwd's."""
+    FP, cap, T, _, C4 = dquad.shape
+    C = C4 // 4
+    if incoming is None:
+        incoming = incoming_slots(neighbor_table(slot, grid, cap), cap)
+    src, start = (x.long() for x in incoming)
+    q = dquad.to(torch.promote_types(dquad.dtype, torch.float32))
+    q0, q1, q2, q3 = (q[..., k * C:(k + 1) * C] for k in range(4))
+    f = torch.arange(FP, device=dquad.device)[:, None]
+
+    def incoming_sum(d, strip):
+        """S_d of (FP, cap, L, C) source strips -> (FP, cap, L, C)."""
+        lo, hi = start[:, d, :cap], start[:, d, 1:]
+        acc = torch.zeros_like(strip)
+        for k in range(int((hi - lo).max())):
+            ok = (lo + k < hi)[..., None, None]
+            s = torch.gather(src[:, d], 1, torch.clamp(lo + k, max=cap - 1))
+            acc = torch.where(ok, acc + strip[f, s], acc)
+        return acc
+
+    r = incoming_sum(0, torch.cat([q1[:, :, :, T - 1], q3[:, :, :T - 1, T - 1]], 2))
+    b = incoming_sum(1, torch.cat([q2[:, :, T - 1], q3[:, :, T - 1, :T - 1]], 2))
+    d = incoming_sum(2, q3[:, :, T - 1, T - 1][:, :, None])
+    t2 = torch.cat([r[:, :, :T, None], q1[:, :, :, :T - 1]], 3)
+    t3 = torch.cat([b[:, :, None, :T], q2[:, :, :T - 1]], 2)
+    t4 = torch.cat([torch.cat([d, b[:, :, T:]], 2)[:, :, None],
+                    torch.cat([r[:, :, T:, None], q3[:, :, :T - 1, :T - 1]], 3)], 2)
+    return (((q0 + t2) + t3) + t4).to(dquad.dtype)
+
+
+def quad_rows_bwd(dquad: torch.Tensor, slot: torch.Tensor, grid: int,
+                  incoming=None) -> torch.Tensor:
+    """Kernel Q-bwd on CUDA tensors, its plain version on CPU tensors:
+    dquad (FP, cap, T, T, 4C) + slot (FP, G*G) -> dtiles (FP, cap, T, T,
+    C), bit-identical either way and from launch to launch (no atomics).
+    incoming: `incoming_slots` of the slot map where the caller has it."""
+    if dquad.device.type == "cpu":
+        return quad_rows_bwd_plain(dquad, slot, grid, incoming)
+    _check_quad_args("quad_rows_bwd", dquad, slot, grid, 4)
+    if dquad.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quad_rows_bwd: bfloat16 or float32, got {dquad.dtype}")
+    FP, cap, T, _, C4 = dquad.shape
+    if incoming is None:
+        incoming = incoming_slots(neighbor_table(slot, grid, cap), cap)
+    src, start = incoming
+    out = torch.empty(FP, cap, T, T, C4 // 4, dtype=dquad.dtype, device=dquad.device)
+    lib = kernels.library("quad_rows_bwd")
+    rc = lib.quad_rows_bwd_launch(dquad.data_ptr(), src.data_ptr(), start.data_ptr(),
+                                  out.data_ptr(), FP, cap, T,
+                                  C4 // 4 * dquad.element_size() // 16,
+                                  int(dquad.dtype == torch.bfloat16),
+                                  kernels.stream_ptr(dquad.device))
+    kernels.check(rc, "quad_rows_bwd")
+    quad_rows_bwd.launches += 1
+    return out
+
+
+quad_rows_bwd.launches = 0
+
+
+class QuadRowsFunction(torch.autograd.Function):
+    """The quad-row build under autograd: kernel Q forward, kernel Q-bwd
+    backward (the plain versions on CPU tensors). Keeps the integer
+    incoming tables and the slot map for the backward, never the tiles."""
+
+    @staticmethod
+    def forward(ctx, tiles, slot, grid):
+        cap = tiles.shape[1]
+        nbr = neighbor_table(slot, grid, cap)
+        ctx.grid = grid
+        ctx.save_for_backward(slot, *incoming_slots(nbr, cap))
+        return quad_rows(tiles, slot, grid, nbr)
+
+    @staticmethod
+    def backward(ctx, dquad):
+        slot, src, start = ctx.saved_tensors
+        return quad_rows_bwd(dquad.contiguous(), slot, ctx.grid, (src, start)), None, None
+
+
 def build_quad(tiles: torch.Tensor, slot: torch.Tensor,
                grid: int) -> torch.Tensor:
     """(B, 3, cap, T, T, C) tiles + (B, 3, G*G) slot -> (B, 3, cap, T, T,
-    4C) quad rows, one kernel launch for every frame and plane."""
+    4C) quad rows, one kernel launch for every frame and plane; through
+    `QuadRowsFunction` where the tiles need a gradient."""
     B, Pn = tiles.shape[:2]
-    q = quad_rows(tiles.reshape((B * Pn,) + tiles.shape[2:]).contiguous(),
-                  slot.reshape(B * Pn, -1), grid)
+    flat = tiles.reshape((B * Pn,) + tiles.shape[2:]).contiguous()
+    s = slot.reshape(B * Pn, -1)
+    if torch.is_grad_enabled() and tiles.requires_grad:
+        q = QuadRowsFunction.apply(flat, s, grid)
+    else:
+        q = quad_rows(flat, s, grid)
     return q.reshape((B, Pn) + q.shape[1:])
 
 

@@ -9,9 +9,10 @@ batch_id)` runs one micro-step (forward, backward, optimizer call) and
 returns its metrics as floats. On the card every D = 64 attention, the ViT
 excepted, runs kernel A forward and A-bwd backward, and every tile
 composite K1 forward and K2 backward; configurations that select a
-forward-only kernel (the segmented splat S, the quad sampling Q, the
-forward-only attention names) are refused here; the sparse upsampler
-trains with the 4-tap or slab sampler. The CLIs' epoch loop, logging and checkpoints are
+forward-only kernel (the segmented splat S, the forward-only attention
+names) are refused here, as the JAX package has no backward for them
+either; the sparse upsampler trains with the quad sampler (kernel Q
+forward, Q-bwd backward), the 4-tap or the slab sampler. The CLIs' epoch loop, logging and checkpoints are
 training/trainer.py's (main.py, main2.py). Over a mesh (parallel/mesh.py)
 the model is sharded over 'model' after its weights are loaded, each data
 rank steps on its rows of the global batch (mesh.batch_rows), and the

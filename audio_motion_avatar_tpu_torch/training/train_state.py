@@ -268,29 +268,20 @@ class TrainState:
                               self.trainable)
 
 
-# where the quad sampler's training (a backward for kernel Q) is queued
-QUAD_TRAINING_ITEM = "ROADMAP.md section 1 item 9 (training with sample_quad)"
-
-
 def check_differentiable(cfg) -> None:
     """Refuse, when a training step is built, the options that select a
-    forward-only kernel: the segmented splat (kernel S), the quad sampling
-    of the sparse upsampler (kernel Q; QUAD_TRAINING_ITEM) and the JAX
+    forward-only kernel: the segmented splat (kernel S) and the JAX
     package's forward-only attention kernels (audio_attn_impl flash2,
-    splash, serve, hpack). sample_quad selects Q only where the renderer
-    reads it, on the sparse upsampler; the dense path ignores it. Everything
-    else trains by autograd: the sparse upsampler with the 4-tap or slab
-    sampler, the Winograd convs (their backward is the direct conv's), SH
-    colours."""
-    quad = cfg.sample_quad and cfg.upsample_triplane and cfg.upsampler_sparse
-    bad = (["splat_segmented"] if cfg.splat_segmented else []) + (["sample_quad"] if quad else [])
+    splash, serve, hpack), which have no backward there either. Everything
+    else trains by autograd: the sparse upsampler with the quad (kernel Q,
+    its backward Q-bwd), 4-tap or slab sampler, the Winograd convs (their
+    backward is the direct conv's), SH colours."""
+    bad = ["splat_segmented"] if cfg.splat_segmented else []
     if cfg.audio_attn_impl in FORWARD_ONLY_ATTN_IMPLS:
         bad.append(f"audio_attn_impl={cfg.audio_attn_impl}")
     if bad:
         raise ValueError(
             f"training needs a differentiable path: {', '.join(bad)} selects a "
-            "forward-only kernel (a serving option); S (splat_segmented), Q "
-            f"(sample_quad; {QUAD_TRAINING_ITEM}) and the attention kernels "
-            f"{', '.join(FORWARD_ONLY_ATTN_IMPLS)} have no backward. Train "
-            "with the tile splat, the dense upsampler or the sparse one with "
-            "the 4-tap or slab sampler, and audio_attn_impl flash")
+            "forward-only kernel (a serving option); S (splat_segmented) and the "
+            f"attention kernels {', '.join(FORWARD_ONLY_ATTN_IMPLS)} have no "
+            "backward. Train with the tile splat and audio_attn_impl flash")

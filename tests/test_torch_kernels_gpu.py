@@ -7,7 +7,8 @@ the JAX test harness's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 
 Tolerances: S and K1 1e-5 absolute (the kernels are built with
---fmad=false and blend in the plain versions' order); Q bit-exact (a copy); A's bf16
+--fmad=false and blend in the plain versions' order); Q bit-exact (a copy)
+and Q-bwd bit-exact (the same fp32 adds in the same order); A's bf16
 outputs against the plain version in fp32 on the same bf16 inputs: every
 |diff| <= 2^-7 |ref| + 2^-4 RMS(ref) (ops/attention.excess_error), and
 A-bwd's bf16 dQ / dK / dV against the fp32 plain backward under the same
@@ -143,6 +144,72 @@ def test_quad_kernel_bit_exact(cuda, dtype, C):
     want = tp.quad_rows_plain(tiles, slot, grid)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _quad_slots(cuda, FP, grid, cap, covered, g):
+    """(FP, G*G) slot maps of `covered[f]` random tiles each (tile 0 and its
+    right / bottom / diagonal neighbours among them, so that the cap -
+    covered unused slots alias onto them), slots in tile order."""
+    slot = torch.full((FP, grid * grid), -1, dtype=torch.long, device=cuda)
+    for f in range(FP):
+        rest = torch.randperm(grid * grid - 4, generator=g, device=cuda) + 4
+        fixed = torch.tensor([0, 1, grid, grid + 1], device=cuda)
+        ids = torch.cat([fixed, rest[:covered[f] - 4]]).sort().values
+        slot[f, ids] = torch.arange(ids.numel(), device=cuda)
+    return slot
+
+
+@pytest.mark.parametrize("dtype,C,T", [(torch.bfloat16, 24, 4), (torch.bfloat16, 256, 3),
+                                       (torch.float32, 4, 4), (torch.float32, 12, 1)])
+def test_quad_bwd_kernel_bit_exact(cuda, dtype, C, T):
+    """Q-bwd against its plain version bit for bit, and a second launch:
+    full, partial and under-filled slot maps (unused slots aliasing tile 0's
+    neighbours), texels of one, three and 32 vectors, tiles of one texel."""
+    FP, grid, cap = 3, 4, 12
+    g = torch.Generator(device=cuda).manual_seed(2)
+    slot = _quad_slots(cuda, FP, grid, cap, [12, 10, 5], g)
+    dquad = torch.randn(FP, cap, T, T, 4 * C, generator=g, device=cuda).to(dtype)
+    got = tp.quad_rows_bwd(dquad, slot, grid)
+    again = tp.quad_rows_bwd(dquad, slot, grid)
+    want = tp.quad_rows_bwd_plain(dquad, slot, grid)
+    cpu = tp.quad_rows_bwd_plain(dquad.cpu(), slot.cpu(), grid)
+    torch.cuda.synchronize()
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(ints), want.view(ints))
+    assert torch.equal(got.view(ints), again.view(ints))
+    assert torch.equal(cpu.view(ints), want.cpu().view(ints))
+
+
+def test_quad_rows_function_on_the_card(cuda):
+    """build_quad under autograd: Q forward, Q-bwd backward; the tiles'
+    gradient equals Q-bwd of the quad rows' gradient, and the launch
+    counters rise by one each."""
+    FP, grid, cap, T, C = 3, 4, 9, 4, 32
+    g = torch.Generator(device=cuda).manual_seed(3)
+    slot = _quad_slots(cuda, FP, grid, cap, [9, 7, 6], g).reshape(1, FP, -1)
+    tiles = torch.randn(1, FP, cap, T, T, C, generator=g, device=cuda).to(torch.bfloat16)
+    tiles.requires_grad_(True)
+    n_f, n_b = tp.quad_rows.launches, tp.quad_rows_bwd.launches
+    q = tp.build_quad(tiles, slot, grid)
+    dq = torch.randn(q.shape, generator=g, device=cuda).to(q.dtype)
+    q.backward(dq)
+    torch.cuda.synchronize()
+    assert (tp.quad_rows.launches - n_f, tp.quad_rows_bwd.launches - n_b) == (1, 1)
+    want = tp.quad_rows_bwd_plain(dq[0], slot[0], grid)
+    assert torch.equal(tiles.grad[0].view(torch.int16), want.view(torch.int16))
+
+
+def test_quad_bwd_wrapper_validates(cuda):
+    slot = torch.zeros(1, 4, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tp.quad_rows_bwd(torch.zeros(1, 1, 2, 2, 4 * 4, device=cuda, dtype=torch.bfloat16),
+                         slot, 2)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tp.quad_rows_bwd(torch.zeros(1, 1, 2, 2, 4 * 8, device=cuda, dtype=torch.float16),
+                         slot, 2)
+    with pytest.raises(ValueError, match="slot"):
+        tp.quad_rows_bwd(torch.zeros(1, 1, 2, 2, 4 * 8, device=cuda, dtype=torch.bfloat16),
+                         slot[:, :3], 2)
 
 
 @pytest.mark.parametrize("B,H,Sq,Skv,masked", [

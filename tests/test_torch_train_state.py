@@ -116,26 +116,27 @@ def test_frozen_split_matches_jax():
 
 @pytest.mark.parametrize("knob", ["splat_segmented", "upsampler_sparse", "sample_quad",
                                   "sample_quad_dense"])
-def test_training_refuses_forward_only_kernels(knob):
-    """Repair: the segmented splat (kernel S) and the sparse upsampler's
-    quad sampling (kernel Q) have no backward; building a train step with
-    them raises and names the option. The sparse upsampler with the 4-tap
-    sampler (refused before that sampler was ported) trains by autograd, and
-    so does sample_quad on the dense path, which ignores it as the JAX
-    renderer does: the steps and the trainer build (the 4-tap form's first
-    step against JAX: tests/test_torch_render_forms.py)."""
+def test_training_refuses_only_the_segmented_splat(knob):
+    """Repair: the segmented splat (kernel S) has no backward; building a
+    train step with it raises and names the option. The sparse upsampler
+    trains by autograd with the 4-tap sampler and with the quad sampler
+    (kernel Q, its backward Q-bwd), and sample_quad on the dense path is
+    ignored as the JAX renderer ignores it: the steps and the trainer build,
+    the renderer keeping the knobs (the 4-tap form's first step against JAX:
+    tests/test_torch_render_forms.py; the quad form's:
+    tests/test_torch_quad_train.py)."""
     from audio_motion_avatar_tpu_torch.train import build_trainer
     from audio_motion_avatar_tpu_torch.training import stage1, stage2
     knobs = {"sample_quad": dict(sample_quad=True, upsampler_sparse=True),
              "sample_quad_dense": dict(sample_quad=True)}.get(knob, {knob: True})
     cfg = dataclasses.replace(AvatarConfig.tiny(image_size=(32, 32)), **knobs)
-    if knob in ("upsampler_sparse", "sample_quad_dense"):
+    if knob != "splat_segmented":
         for make in (stage1.make_train_step, stage2.make_train_step):
             make(None, None, cfg)
         tr = build_trainer(2, cfg, device="cpu")
         rcfg = tr.model.renderer.cfg
-        assert rcfg.upsampler_sparse == (knob == "upsampler_sparse")
-        assert rcfg.sample_quad == (knob == "sample_quad_dense")
+        assert rcfg.upsampler_sparse == (knob in ("upsampler_sparse", "sample_quad"))
+        assert rcfg.sample_quad == (knob in ("sample_quad", "sample_quad_dense"))
         return
     for make in (stage1.make_train_step, stage2.make_train_step):
         with pytest.raises(ValueError, match=knob):
