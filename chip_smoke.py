@@ -12,12 +12,18 @@ Phases (any failure exits non-zero):
                holds it against its plain PyTorch version on the same inputs:
                S (segmented splat, 6 frames at 512^2, 30k gaussians): max|diff| <= 1e-5
                and a second launch bit for bit;
-               Q (quad rows, (18, 256, 16, 16, 256) bf16): bit-exact;
+               Q (quad rows, (18, 256, 16, 16, 256) bf16): bit-exact, and
+               index_select through quad_gather_index bit-exact too;
                Q-bwd (its backward, at (18, 256, 16, 16, 256) and a
                training frame's (3, 256, 16, 16, 256), bf16, ~200 of the 256
-               slots covered so the unused ones alias tile 0's neighbours):
-               bit-exact against its plain version, which gives the CPU's
-               bits, and a second launch bit for bit;
+               slots covered so the unused ones alias tile 0's neighbours,
+               and that frame with tile 0's neighbours uncovered, nothing
+               aliasing): bit-exact against its plain version, which gives
+               the CPU's bits, and a second launch bit for bit; index_add_
+               through quad_gather_index within the fp32 reordering bound;
+               Q and Q-bwd timed alone (their tables built outside the
+               timing) by CUDA events and as device time (a CUDA graph),
+               index_select / index_add_ beside them as yardsticks;
                A (attention, (2, 8, 6304, 64), its q_tail and the PTv3
                masked patches (354, 4, 512, 64), bf16) against the fp32
                plain version: every |diff| <= 2^-7 |ref| + 2^-4 RMS(ref),
@@ -52,11 +58,13 @@ Phases (any failure exits non-zero):
                F.conv2d (for K9b the chain relu(a x + c), F.conv2d);
   2c. parent comparison (only with --parent DIR, DIR holding an earlier
                tree's audio_motion_avatar_tpu_torch/csrc, e.g. unpacked by git
-               archive under build/) — that tree's S, A, K1, K2, A-bwd and
-               K9a / K9b built into build/parent/ and timed, through this
-               tree's wrappers, beside this tree's at every shape of their
-               checks, in turns (earlier, this, this, earlier), each output
-               held against the earlier one (S and K1 must be bit-identical);
+               archive under build/) — that tree's Q, Q-bwd (through its
+               own C signature), S, A, K1, K2, A-bwd and K9a / K9b built
+               into build/parent/ and timed, through this tree's wrappers,
+               beside this tree's at every shape of their checks, in turns
+               (earlier, this, this, earlier), each output held against the
+               earlier one (Q, Q-bwd, S and K1 must be bit-identical); the
+               kernels line then carries Q's and Q-bwd's parent times;
   3. small   — a tiny fp32 rollout on the card against the same rollout on
                the CPU (plain versions): frames mean|diff| <= 1e-3; then the
                tiny config with 64-wide audio heads (kernel A) in bf16 on
@@ -501,10 +509,66 @@ def check_splat(dev):
             "shape": f"{F} frames x {tpf} tiles, {N} gaussians"}
 
 
-def check_quad(dev):
+def quad_gather_index(slot, grid, cap, T):
+    """The quad layout as one row index: row (f, s, y, x, k) of the quad
+    rows viewed as (FP * cap * T^2 * 4, C) rows is row index[...] of the
+    tiles with a zero slot appended, cat(tiles, zeros) viewed as (FP * (cap
+    + 1) * T^2, C) rows; a missing neighbour reads the zero slot. Kernel Q
+    is then one `index_select` through it and kernel Q-bwd one `index_add_`
+    (the yardsticks phase 2 times beside them). Built outside the timing,
+    as the neighbour table is; the port never calls it."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+
+    FP, dev = slot.shape[0], slot.device
+    nr, nb, nd = (n[:, :, None, None, None] for n in tp.neighbor_slots(slot, grid, cap))
+    r = torch.arange(T, device=dev)
+    k = torch.arange(4, device=dev)
+    sy = r[:, None, None] + (k >> 1)                      # (T, 1, 4) source row
+    sx = r[None, :, None] + (k & 1)                       # (1, T, 4) source column
+    own = torch.arange(cap, device=dev)[None, :, None, None, None]
+    s = torch.where((sy == T) & (sx == T), nd,
+                    torch.where(sx == T, nr, torch.where(sy == T, nb, own)))
+    f = torch.arange(FP, device=dev)[:, None, None, None, None]
+    return (((f * (cap + 1) + s) * T + sy % T) * T + sx % T).reshape(-1)
+
+
+def quad_rows_library(tiles, index):
+    """Kernel Q's function as one `index_select` of the tiles' C-wide rows
+    (a zero slot appended) through `quad_gather_index`: (FP, cap, T, T, C)
+    -> (FP, cap, T, T, 4C). Returns the call (the zero slot appended
+    outside it)."""
+    import torch
+    FP, cap, T, _, C = tiles.shape
+    rows = torch.cat([tiles, tiles.new_zeros(FP, 1, T, T, C)], 1).reshape(-1, C)
+    return lambda: torch.index_select(rows, 0, index).view(FP, cap, T, T, 4 * C)
+
+
+def quad_rows_bwd_library(dquad, index, dtype=None):
+    """Kernel Q-bwd's function as one `index_add_` of dquad's C-wide rows
+    through `quad_gather_index` into a (FP * (cap + 1) * T^2, C) buffer of
+    `dtype` (dquad's by default) zeroed once, outside the call; the rows of
+    slot cap are dropped after. Returns the call, which accumulates into
+    the buffer again each time (the first call's result is the function's)."""
+    import torch
+    FP, cap, T, _, C4 = dquad.shape
+    rows = dquad.reshape(-1, C4 // 4).to(dtype or dquad.dtype)
+    buf = torch.zeros(FP * (cap + 1) * T * T, C4 // 4, dtype=rows.dtype, device=dquad.device)
+    return lambda: buf.index_add_(0, index, rows).view(FP, cap + 1, T, T, -1)[:, :cap]
+
+
+def reordered_sum_bound(magnitude, terms):
+    """How far two fp32 summation orders of the same `terms` terms can part:
+    2 (terms - 1) 2^-24 times the sum of the terms' magnitudes (each order
+    within (terms - 1) 2^-24 of the exact sum, to first order)."""
+    return 2 * (terms - 1) * 2.0 ** -24 * magnitude
+
+
+def quad_inputs(dev):
+    """Kernel Q's serving inputs: (tiles (18, 256, 16, 16, 256) bf16, slot
+    (18, 32^2) of select_tiles on a seeded point spread, grid 32)."""
     import torch
     from audio_motion_avatar_tpu_torch.models.upsampler import select_tiles
-    from audio_motion_avatar_tpu_torch.ops import triplane as tp
 
     FP, cap, T, C, grid = 18, 256, 16, 256, 32
     g = torch.Generator(device=dev).manual_seed(0)
@@ -512,22 +576,51 @@ def check_quad(dev):
         torch.tensor([0.2, 0.5], device=dev)
     _, _, slot, _ = select_tiles(uv, grid, cap, T)
     tiles = torch.randn(FP, cap, T, T, C, device=dev, generator=g).to(torch.bfloat16)
-    out_k = tp.quad_rows(tiles, slot, grid)
+    return tiles, slot, grid
+
+
+def check_quad(dev):
+    """Kernel Q at the serving chunk's (18, 256, 16, 16, 256) bf16: bit-exact
+    against its plain version and against `index_select` through
+    `quad_gather_index`; its time alone (the neighbour table built once,
+    outside the timing, as `QuadRowsFunction` and the renderer do), by CUDA
+    events and as device time (graph_ms), beside the plain version's, the
+    bound (bytes: each tile read once, the quad rows written once) and the
+    index_select's."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+
+    tiles, slot, grid = quad_inputs(dev)
+    cap, T = tiles.shape[1], tiles.shape[2]
+    nbr = tp.neighbor_table(slot, grid, cap)
+    library = quad_rows_library(tiles, quad_gather_index(slot, grid, cap, T))
+    out_k = tp.quad_rows(tiles, slot, grid, nbr)
     out_p = tp.quad_rows_plain(tiles, slot, grid)
+    out_l = library()
     torch.cuda.synchronize()
-    exact = torch.equal(out_k.view(torch.int16), out_p.view(torch.int16))
+    exact = torch.equal(bits(out_k), bits(out_p))
+    lib_exact = torch.equal(bits(out_l), bits(out_p))
     err = float((out_k.float() - out_p.float()).abs().max())
     covered = int((slot >= 0).sum())
     print(f"[kernels] Q quad_rows: {tuple(tiles.shape)} bf16, {covered} covered "
-          f"tiles, bit-exact={exact} max|diff|={err}", flush=True)
-    if not exact:
-        raise AssertionError("kernel Q is not bit-exact against its plain version")
+          f"tiles, bit-exact={exact} max|diff|={err}; index_select through "
+          f"quad_gather_index bit-exact={lib_exact}", flush=True)
+    if not (exact and lib_exact):
+        raise AssertionError(f"kernel Q bit-exact {exact}, its index_select {lib_exact}")
+    del out_k, out_p, out_l
     nbytes = 5 * tiles.numel() * tiles.element_size()
     bound_ms, by = bound(0.0, PEAK_BF16_FLOPS, nbytes)
-    return {"name": "quad_rows", "err": err,
-            "ms": time_ms(lambda: tp.quad_rows(tiles, slot, grid), 20),
-            "plain_ms": time_ms(lambda: tp.quad_rows_plain(tiles, slot, grid), 5),
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+    ms = time_ms(lambda: tp.quad_rows(tiles, slot, grid, nbr), 20)
+    device_ms = graph_ms(lambda: tp.quad_rows(tiles, slot, grid, nbr), launches=10)
+    lib_ms = time_ms(library, 20)
+    lib_device_ms = graph_ms(library, launches=10)
+    plain_ms = time_ms(lambda: tp.quad_rows_plain(tiles, slot, grid), 5)
+    print(f"[kernels] Q alone: {ms:.4f} ms (device time {device_ms:.4f} ms), "
+          f"{bound_ms / device_ms:.0%} of its bound {bound_ms:.4f} ms ({by}); index_select "
+          f"{lib_ms:.4f} ms (device time {lib_device_ms:.4f} ms); plain version "
+          f"{plain_ms:.3f} ms", flush=True)
+    return {"name": "quad_rows", "err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
             "shape": f"{tuple(tiles.shape)} bf16"}
 
 
@@ -538,39 +631,62 @@ def bits(x):
     return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()])
 
 
-def check_quad_bwd(dev):
-    """Kernel Q-bwd at the serving chunk's quad rows (18, 256, 16, 16, 256)
-    and a training frame's (3, 256, 16, 16, 256), bf16, on select_tiles
-    slot maps as check_quad makes them, but of points spread narrower (a
-    blob and a cluster at the plane's corner) so that about 200 of the 256
-    slots are covered: the unused ones alias tile 0's neighbours, tiles 1,
-    grid and grid + 1, which then collect some 50 incoming slots each (the
-    check fails without them); a seeded cotangent: bit-exact against
-    its plain version, which gives the same bits on the CPU, and a second
-    launch bit for bit; times beside the plain version and the bound (bytes:
-    the quad rows read once, the tiles' gradient written once); no library
-    call computes this function. Returns the kernels line's entry (the
-    training frame's shape)."""
+def quad_bwd_cases(dev):
+    """Kernel Q-bwd's four phase-2 inputs, bf16, on select_tiles slot maps as
+    check_quad makes them but of points spread narrower, so that about 200
+    of the 256 slots are covered: (name, dquad (FP, 256, 16, 16, 1024),
+    slot, grid, incoming (`incoming_slots`), the most incoming slots of a
+    target).
+    'serving chunk' (FP 18) and 'training frame' (FP 3) add a cluster at the
+    plane's corner: tile 0's neighbours, tiles 1, grid and grid + 1, are
+    covered, and the unused slots, which alias onto them, give each some 50
+    incoming slots. 'training frame, unaliased' (FP 3) leaves the corner
+    uncovered, so no target has two sources in a direction: the case of
+    phase 19b's real step. 'training frame, few covered tiles' (FP 3) puts
+    every point in the corner: some 7 tiles a frame-plane covered, some
+    250 incoming slots a target, near the longest runs a map can give."""
     import torch
     from audio_motion_avatar_tpu_torch.models.upsampler import select_tiles
     from audio_motion_avatar_tpu_torch.ops import triplane as tp
 
     cap, T, C, grid = 256, 16, 256, 32
-    out = None
-    for name, FP in (("serving chunk", 18), ("training frame", 3)):
+    for name, FP, corner in (("serving chunk", 18, 300), ("training frame", 3, 300),
+                             ("training frame, unaliased", 3, 0),
+                             ("training frame, few covered tiles", 3, 30000)):
         g = torch.Generator(device=dev).manual_seed(1)
         uv = torch.randn(FP, 30000, 2, device=dev, generator=g) * \
             torch.tensor([0.06, 0.15], device=dev)
-        uv[:, :300] = uv[:, :300] * 0.3 - 0.95
+        uv[:, :corner] = uv[:, :corner] * (0.3 if corner < 30000 else 0.05) - 0.95
         _, _, slot, _ = select_tiles(uv, grid, cap, T)
         dquad = torch.randn(FP, cap, T, T, 4 * C, device=dev, generator=g).to(torch.bfloat16)
-        src, start = tp.incoming_slots(tp.neighbor_table(slot, grid, cap), cap)
-        most = int((start[..., 1:] - start[..., :-1]).max())
-        if most < 2:
-            raise AssertionError(f"Q-bwd check ({name}): no target with aliased incoming slots")
-        got = tp.quad_rows_bwd(dquad, slot, grid)
-        again = tp.quad_rows_bwd(dquad, slot, grid)
-        plain = tp.quad_rows_bwd_plain(dquad, slot, grid)
+        incoming = tp.incoming_slots(tp.neighbor_table(slot, grid, cap), cap)
+        most = int((incoming[1][..., 1:] - incoming[1][..., :-1]).max())
+        if (most >= 2) != (corner > 0):
+            raise AssertionError(f"Q-bwd case {name}: up to {most} incoming slots a target")
+        yield name, dquad, slot, grid, incoming, most
+
+
+def check_quad_bwd(dev):
+    """Kernel Q-bwd at `quad_bwd_cases`' four inputs and a seeded cotangent:
+    bit-exact against its plain version, whose bits are the CPU's, and a
+    second launch bit for bit; `index_add_` through `quad_gather_index`
+    within the reordering bound of an fp32 sum (its atomics add in another
+    order); its time alone (the incoming tables built once, outside the
+    timing, as `QuadRowsFunction` does), by CUDA events and as device time
+    (graph_ms), beside the plain version's, the bound (bytes: the quad rows
+    read once, the tiles' gradient written once) and the bf16
+    `index_add_`'s. Returns the kernels line's entry (the aliased training
+    frame)."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+
+    out = None
+    for name, dquad, slot, grid, incoming, most in quad_bwd_cases(dev):
+        FP, cap, T = dquad.shape[:3]
+        index = quad_gather_index(slot, grid, cap, T)
+        got = tp.quad_rows_bwd(dquad, slot, grid, incoming)
+        again = tp.quad_rows_bwd(dquad, slot, grid, incoming)
+        plain = tp.quad_rows_bwd_plain(dquad, slot, grid, incoming)
         torch.cuda.synchronize()
         exact = torch.equal(bits(got), bits(plain))
         repeat = torch.equal(bits(got), bits(again))
@@ -578,23 +694,46 @@ def check_quad_bwd(dev):
         cpu = tp.quad_rows_bwd_plain(dquad[:1].cpu(), slot[:1].cpu(), grid)
         cpu_same = torch.equal(bits(cpu), bits(plain[:1].cpu()))
         err = float((got.float() - plain.float()).abs().max())
+        del again, plain, cpu
+        # index_add_ in fp32 against the plain version in fp32: each output
+        # sums t1..t4, up to two of them over `most` sources
+        wide = quad_rows_bwd_library(dquad, index, torch.float32)()
+        want = tp.quad_rows_bwd_plain(dquad.float(), slot, grid, incoming)
+        tol = reordered_sum_bound(
+            tp.quad_rows_bwd_plain(dquad.float().abs(), slot, grid, incoming), 2 * most + 2)
+        lib_excess = float(((wide - want).abs() - tol).max())
+        del wide, want, tol
         covered = int((slot >= 0).sum())
         print(f"[kernels] Q-bwd quad_rows_bwd, {name}: {tuple(dquad.shape)} bf16, {covered} "
               f"covered tiles of {FP * cap} slots (up to {most} incoming slots a target), "
               f"bit-exact={exact} max|diff|={err}; a second launch bit-identical: {repeat}; "
-              f"the plain version's bits on the CPU the card's: {cpu_same}", flush=True)
-        if not (exact and repeat and cpu_same):
+              f"the plain version's bits on the CPU the card's: {cpu_same}; index_add_ in fp32 "
+              f"within the fp32 reordering bound (2 (n-1) 2^-24 sum|terms|, n = {2 * most + 2}): "
+              f"{lib_excess <= 0}", flush=True)
+        if not (exact and repeat and cpu_same and lib_excess <= 0):
             raise AssertionError(f"kernel Q-bwd ({name}): bit-exact {exact}, repeatable "
-                                 f"{repeat}, plain version device-independent {cpu_same}")
+                                 f"{repeat}, plain version device-independent {cpu_same}, "
+                                 f"index_add_ beyond the bound by {lib_excess}")
         nbytes = 5 * (dquad.numel() // 4) * dquad.element_size()
         bound_ms, by = bound(0.0, PEAK_BF16_FLOPS, nbytes)
-        ms = time_ms(lambda: tp.quad_rows_bwd(dquad, slot, grid), 20)
-        plain_ms = time_ms(lambda: tp.quad_rows_bwd_plain(dquad, slot, grid), 3)
-        print(f"[kernels] Q-bwd {name}: {ms:.4f} ms, plain version {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({by}); library call: none", flush=True)
-        out = {"name": "quad_rows_bwd", "err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-               "shape": f"{tuple(dquad.shape)} bf16"}
+        launches = 10 if FP > 3 else 20
+        library = quad_rows_bwd_library(dquad, index)
+        ms = time_ms(lambda: tp.quad_rows_bwd(dquad, slot, grid, incoming), 20)
+        device_ms = graph_ms(lambda: tp.quad_rows_bwd(dquad, slot, grid, incoming), launches)
+        lib_ms = time_ms(library, 20)
+        lib_device_ms = graph_ms(library, launches)
+        plain_ms = time_ms(lambda: tp.quad_rows_bwd_plain(dquad, slot, grid, incoming), 3)
+        print(f"[kernels] Q-bwd {name} alone: {ms:.4f} ms (device time {device_ms:.4f} ms), "
+              f"{bound_ms / device_ms:.0%} of its bound {bound_ms:.4f} ms ({by}); bf16 index_add_ "
+              f"{lib_ms:.4f} ms (device time {lib_device_ms:.4f} ms); plain version "
+              f"{plain_ms:.3f} ms", flush=True)
+        if name == "training frame":
+            out = {"name": "quad_rows_bwd", "err": err, "ms": ms, "device_ms": device_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                   "library_ms": lib_ms, "shape": f"{tuple(dquad.shape)} bf16, {most} "
+                   "incoming slots aliasing"}
+        del got, library
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1298,8 +1437,89 @@ def parent_segments(parent, lib, args):
     return run
 
 
+def parent_quad_bwd(lib, dquad, incoming):
+    """A call of the parent's kernel Q-bwd (lib) on dquad through the C
+    signature of the kernel's first launch (dquad, src, start, dtiles, FP,
+    cap, T, vectors a texel, bf16, stream), whatever this tree's launch
+    takes."""
+    import ctypes
+    import torch
+    from audio_motion_avatar_tpu_torch import kernels
+
+    launch = lib.quad_rows_bwd_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    launch.argtypes, launch.restype = [P, P, P, P, I, I, I, I, I, P], I
+    src, start = incoming
+    FP, cap, T, _, C4 = dquad.shape
+
+    def run():
+        out = torch.empty(FP, cap, T, T, C4 // 4, dtype=dquad.dtype, device=dquad.device)
+        kernels.check(launch(dquad.data_ptr(), src.data_ptr(), start.data_ptr(), out.data_ptr(),
+                             FP, cap, T, C4 // 4 * dquad.element_size() // 16,
+                             int(dquad.dtype == torch.bfloat16),
+                             kernels.stream_ptr(dquad.device)), "parent quad_rows_bwd")
+        return out
+    return run
+
+
+def compare_quad_parent(libs):
+    """The parent's Q (through this tree's wrapper: the launch is unchanged)
+    at check_quad's input and its Q-bwd (`parent_quad_bwd`) at
+    `quad_bwd_cases`' four, beside this tree's on the same inputs, the
+    tables built outside the timing: in turns (parent, this tree, this tree,
+    parent), CUDA-event means of 10 calls and device times (graph_ms); this
+    tree bit-equal to the parent. Returns {kernel: (the four event times,
+    the four device times)} at the kernels line's shapes (Q's; Q-bwd's
+    aliased training frame)."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import triplane as tp
+
+    dev = torch.device("cuda")
+    times = {}
+    tiles, slot, grid = quad_inputs(dev)
+    nbr = tp.neighbor_table(slot, grid, tiles.shape[1])
+
+    def new():
+        return tp.quad_rows(tiles, slot, grid, nbr)
+
+    old = through("quad_rows", libs["quad_rows"], new)
+    same = torch.equal(bits(new()), bits(old()))
+    t = [time_ms(f, 10) for f in (old, new, new, old)]
+    d = [graph_ms(f, 10) for f in (old, new, new, old)]
+    print(f"[parent] Q {tuple(tiles.shape)} bf16: parent {t[0]:.4f} / {t[3]:.4f} ms, this tree "
+          f"{t[1]:.4f} / {t[2]:.4f} ms; device time parent {d[0]:.4f} / {d[3]:.4f} ms, this tree "
+          f"{d[1]:.4f} / {d[2]:.4f} ms, x{min(d[0], d[3]) / min(d[1], d[2]):.2f}; this tree "
+          f"bit-identical to the parent: {same}", flush=True)
+    if not same:
+        raise AssertionError("kernel Q differs from the parent's")
+    times["quad_rows"] = (t, d)
+    del tiles, slot, nbr
+    for name, dquad, slot, grid, incoming, most in quad_bwd_cases(dev):
+        def new():
+            return tp.quad_rows_bwd(dquad, slot, grid, incoming)
+
+        old = parent_quad_bwd(libs["quad_rows_bwd"], dquad, incoming)
+        same = torch.equal(bits(new()), bits(old()))
+        launches = 10 if dquad.shape[0] > 3 else 20
+        t = [time_ms(f, 10) for f in (old, new, new, old)]
+        d = [graph_ms(f, launches) for f in (old, new, new, old)]
+        print(f"[parent] Q-bwd {name} {tuple(dquad.shape)} bf16, up to {most} incoming slots a "
+              f"target: parent {t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} / {t[2]:.4f} ms; "
+              f"device time parent {d[0]:.4f} / {d[3]:.4f} ms, this tree {d[1]:.4f} / "
+              f"{d[2]:.4f} ms, x{min(d[0], d[3]) / min(d[1], d[2]):.2f}; this tree bit-identical "
+              f"to the parent: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"kernel Q-bwd ({name}) differs from the parent's")
+        if name == "training frame":
+            times["quad_rows_bwd"] = (t, d)
+        del dquad
+        torch.cuda.empty_cache()
+    return times
+
+
 def compare_parent(dev, parent):
-    """The parent commit's S, A, K1, K2, A-bwd and K9a / K9b beside this
+    """The parent commit's Q and Q-bwd (`compare_quad_parent`), then its S,
+    A, K1, K2, A-bwd and K9a / K9b beside this
     tree's, at S's serving shape and at every shape of check_attention and
     check_attention_stage1 (A), of check_tiles_bwd (K1, K2),
     check_attention_bwd and check_winograd, on the same inputs, each
@@ -1311,7 +1531,7 @@ def compare_parent(dev, parent):
     key mask as a boolean attn_mask) as a yardstick; this tree held against
     the parent's outputs under each kernel's rule (A, A-bwd:
     ops/attention.excess_error; S, K1: bit-equality; K2: bwd_close;
-    K9a / K9b: max|diff|)."""
+    K9a / K9b: max|diff|). Returns compare_quad_parent's times."""
     import torch
     import torch.nn.functional as Fn
     from audio_motion_avatar_tpu_torch.ops import attention as at
@@ -1321,8 +1541,9 @@ def compare_parent(dev, parent):
     from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
 
     libs = {name: parent_library(parent, name)
-            for name in ("splat_segments", "attention", "splat_tiles", "splat_tiles_bwd",
-                         "attention_bwd", "winograd")}
+            for name in ("quad_rows", "quad_rows_bwd", "splat_segments", "attention",
+                         "splat_tiles", "splat_tiles_bwd", "attention_bwd", "winograd")}
+    quad_times = compare_quad_parent(libs)
     # S, redesigned on the walk it shares with K1: each cut an identity, so
     # bit-identical to the parent's
     args = segment_inputs(dev)[0]
@@ -1455,6 +1676,7 @@ def compare_parent(dev, parent):
         del got, want
         del x
         torch.cuda.empty_cache()
+    return quad_times
 
 
 def tame_seeded_weights(model):
@@ -5029,8 +5251,13 @@ def main():
 
     checks = phase("2 kernels", kernel_checks)
     if "--parent" in sys.argv:
-        phase("2c parent comparison", compare_parent, dev,
-              sys.argv[sys.argv.index("--parent") + 1])
+        parent_times = phase("2c parent comparison", compare_parent, dev,
+                             sys.argv[sys.argv.index("--parent") + 1])
+        # Q's and Q-bwd's entries carry the parent's times from this call
+        for c in checks:
+            if c["name"] in parent_times:
+                t, d = parent_times[c["name"]]
+                c.update(parent_ms=min(t[0], t[3]), parent_device_ms=min(d[0], d[3]))
     phase("3 small", check_small, dev)
     roll, state, fps4 = phase("4 rollout", run_rollout, dev)
     serving = serving_inputs(*state)
@@ -5130,7 +5357,9 @@ def main():
                      "max_abs_err": c["err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                     "shape": c["shape"]})
+                     "shape": c["shape"],
+                     **{k: c[k] for k in ("device_ms", "parent_ms", "parent_device_ms")
+                        if k in c}})
     print(f"[run] chip_smoke.py phases done in {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

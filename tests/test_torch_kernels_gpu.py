@@ -159,16 +159,35 @@ def _quad_slots(cuda, FP, grid, cap, covered, g):
     return slot
 
 
-@pytest.mark.parametrize("dtype,C,T", [(torch.bfloat16, 24, 4), (torch.bfloat16, 256, 3),
-                                       (torch.float32, 4, 4), (torch.float32, 12, 1)])
-def test_quad_bwd_kernel_bit_exact(cuda, dtype, C, T):
+@pytest.mark.parametrize("dtype,C,T,grid,cap,covered,unused_zero", [
+    (torch.bfloat16, 24, 4, 4, 12, [12, 10, 5], False),
+    (torch.bfloat16, 256, 3, 4, 12, [12, 10, 5], False),
+    (torch.float32, 4, 4, 4, 12, [12, 10, 5], False),
+    (torch.float32, 12, 1, 4, 12, [12, 10, 5], False),
+    (torch.bfloat16, 24, 2, 4, 12, [12, 10, 5], False),
+    (torch.bfloat16, 16, 4, 8, 40, [5, 13, 40], False),
+    (torch.bfloat16, 16, 4, 8, 40, [5, 13, 40], True),
+    (torch.float32, 8, 3, 8, 40, [5, 13, 40], True),
+    (torch.bfloat16, 256, 16, 8, 40, [5, 13, 40], False),
+    (torch.float32, 256, 16, 8, 40, [5, 13, 40], True),
+])
+def test_quad_bwd_kernel_bit_exact(cuda, dtype, C, T, grid, cap, covered, unused_zero):
     """Q-bwd against its plain version bit for bit, and a second launch:
     full, partial and under-filled slot maps (unused slots aliasing tile 0's
-    neighbours), texels of one, three and 32 vectors, tiles of one texel."""
-    FP, grid, cap = 3, 4, 12
+    neighbours), texels of one, two, three and 32 vectors, tiles of one and
+    two texels a side; heavily aliased maps (5 or 13 of 40 slots covered:
+    runs of 36 and 29 sources, past the kernel's unroll of 8 and not
+    multiples of it; also at 16^2-texel tiles of 256 channels, whose edge
+    vectors outnumber the block's threads), also with the unused slots'
+    cotangent rows all -0.0, as the sampler's masked points leave them
+    (sums of -0.0 from +0: the sign of every zero must match)."""
+    FP = len(covered)
     g = torch.Generator(device=cuda).manual_seed(2)
-    slot = _quad_slots(cuda, FP, grid, cap, [12, 10, 5], g)
+    slot = _quad_slots(cuda, FP, grid, cap, covered, g)
     dquad = torch.randn(FP, cap, T, T, 4 * C, generator=g, device=cuda).to(dtype)
+    if unused_zero:
+        for f, n in enumerate(covered):
+            dquad[f, n:] = -0.0
     got = tp.quad_rows_bwd(dquad, slot, grid)
     again = tp.quad_rows_bwd(dquad, slot, grid)
     want = tp.quad_rows_bwd_plain(dquad, slot, grid)

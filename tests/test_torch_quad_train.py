@@ -6,7 +6,9 @@ cotangents, in every coverage that `select_tiles` leaves: full, partial
 with holes, fewer covered tiles than slots (the unused slots all take tile
 0's neighbours, so tiles 1, grid and grid + 1 collect many sources; tile 0
 covered and not), and tiles on the grid's right and bottom edges; plus
-`incoming_slots` against the definition. (b) `QuadRowsFunction` through
+`incoming_slots` against the definition, and chip_smoke.py's yardsticks
+(one index_select / index_add_ through `quad_gather_index`) against the
+plain Q and Q-bwd. (b) `QuadRowsFunction` through
 `torch.autograd.gradcheck` in float64. (c) One stage-1 train step in the
 sparse + quad form (tests/test_torch_render_forms.py's TRAIN_FORM with
 sample_quad) against the JAX step. (d) One tiny stage-2 step in the quad
@@ -16,7 +18,9 @@ of a train step in the quad form against the count chip_smoke.py holds the
 card's launches to.
 
 Tolerances: (a) float32 atol 1e-6 (one reordered float32 sum of a few
-terms in [-1, 1)); bfloat16 within two bf16 units of the larger of the two
+terms in [-1, 1)); index_add_ within 2 (n - 1) 2^-24 of the sum of its n
+terms' magnitudes (its sums in another order; index_select is a copy,
+bit-exact); bfloat16 within two bf16 units of the larger of the two
 values, elementwise, against the JAX vjp taken in float32 of the same bf16
 values (the port sums in float32 and rounds once; the JAX vjp in bf16 rounds
 every partial sum, which moves a cancelling sum by more); (c) loss and
@@ -146,6 +150,38 @@ def test_incoming_slots_invert_the_neighbour_table(coverage):
                 assert listed == [s for s in range(cap) if int(nbr[f, s, d]) == u], (f, d, u)
                 most = max(most, len(listed))
     assert most == (cap - len(keep) + (0 in keep) if coverage.startswith("unused") else 1)
+
+
+@pytest.mark.parametrize("coverage", list(COVERAGE))
+def test_quad_gather_index_select_is_quad_rows(coverage):
+    """chip_smoke.py's yardstick for kernel Q: one index_select through
+    quad_gather_index equals the plain quad rows bit for bit."""
+    tiles, _, slot = _quad_case(coverage, 3, torch.bfloat16)
+    tiles, slot = torch.tensor(tiles).bfloat16(), torch.tensor(slot)
+    index = chip_smoke.quad_gather_index(slot, GRID, tiles.shape[1], T)
+    got = chip_smoke.quad_rows_library(tiles, index)()
+    want = ttp.quad_rows_plain(tiles, slot, GRID)
+    assert got.shape == want.shape
+    assert torch.equal(chip_smoke.bits(got), chip_smoke.bits(want))
+
+
+@pytest.mark.parametrize("coverage", list(COVERAGE))
+def test_quad_gather_index_add_is_quad_rows_bwd(coverage):
+    """... and for kernel Q-bwd: one index_add_ through the same index
+    equals the plain backward within the reordering bound of an fp32 sum
+    (chip_smoke.reordered_sum_bound over the most terms an output sums)."""
+    _, dquad, slot = _quad_case(coverage, 4)
+    dquad, slot = torch.tensor(dquad), torch.tensor(slot)
+    cap = dquad.shape[1]
+    incoming = ttp.incoming_slots(ttp.neighbor_table(slot, GRID, cap), cap)
+    most = int((incoming[1][..., 1:] - incoming[1][..., :-1]).max())
+    index = chip_smoke.quad_gather_index(slot, GRID, cap, T)
+    got = chip_smoke.quad_rows_bwd_library(dquad, index)()
+    want = ttp.quad_rows_bwd_plain(dquad, slot, GRID, incoming)
+    tol = chip_smoke.reordered_sum_bound(
+        ttp.quad_rows_bwd_plain(dquad.abs(), slot, GRID, incoming), 2 * most + 2)
+    assert got.shape == want.shape
+    assert ((got - want).abs() <= tol).all(), float(((got - want).abs() - tol).max())
 
 
 @pytest.mark.parametrize("coverage", ["unused, tile 0 covered", "unused, tile 0 not covered"])
