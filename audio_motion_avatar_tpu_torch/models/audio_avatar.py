@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..device import compute_dtype as _compute_dtype
+from ..utils import profiling
 from .audio_net import AudioTriplaneNet
 from .avatar import TriplaneGaussianAvatar
 from .config import AvatarConfig
@@ -85,7 +86,8 @@ class AudioDrivenAvatar(nn.Module):
     def _decode_and_render(self, statics, out_tri, out_smpl, cams):
         B, T = out_smpl.shape[:2]
         flat = out_smpl.reshape((B * T,) + out_smpl.shape[2:])
-        pred = reshape_params(self.smpl_decoder(flat), (B, T))
+        with profiling.span("decode"):
+            pred = reshape_params(self.smpl_decoder(flat), (B, T))
         rendered, gaussians = self.renderer(statics, out_tri, cams, pred)
         return rendered, pred, gaussians
 

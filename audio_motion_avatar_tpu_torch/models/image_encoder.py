@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.tensor import ModelAxis, copy_to_model
+from ..utils import profiling
 from .ptv3 import _PatchAttention
 from .transformer import LayerNorm, linear, row_linear
 
@@ -56,7 +57,8 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int],
         m = x.shape[d]
         if m == n:
             continue
-        w = torch.as_tensor(resize_weights(m, n), dtype=x.dtype, device=x.device)
+        with profiling.host_sync("image_encoder.resize"):
+            w = torch.as_tensor(resize_weights(m, n), dtype=x.dtype, device=x.device)
         x = torch.tensordot(x.movedim(d, -1), w, dims=1).movedim(-1, d)
     return x
 
@@ -70,8 +72,10 @@ def preprocess(images: torch.Tensor, resolution: int) -> torch.Tensor:
     images = F.pad(images, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2),
                    value=1.0)
     images = resize_bilinear(images, (resolution, resolution), (2, 3))
-    mean = torch.tensor(SAPIENS_MEAN, device=images.device).reshape(1, 3, 1, 1)
-    std = torch.tensor(SAPIENS_STD, device=images.device).reshape(1, 3, 1, 1)
+    with profiling.host_sync("image_encoder.normalize"):
+        mean = torch.tensor(SAPIENS_MEAN, device=images.device).reshape(1, 3, 1, 1)
+    with profiling.host_sync("image_encoder.normalize"):
+        std = torch.tensor(SAPIENS_STD, device=images.device).reshape(1, 3, 1, 1)
     return (images - mean) / std
 
 

@@ -31,6 +31,13 @@ the backward (torch.utils.checkpoint) instead of keeping its upsampler,
 refiner and splat activations: in the quad form a chunk builds its quad
 rows twice (Q, the second time in the recompute) and transposes them once
 (Q-bwd).
+
+The stages are spans of the port's tracer (utils/profiling.py), each
+entered once a chunk or more: render.body (FK/LBS, subdivision,
+sub-selection), render.upsample, render.sample (the quad build or the
+halo, and each sampling), render.refine (PTv3 and the refine MLP) and
+render.splat (the fused heads to the frames: projection, binning, sort,
+kernel S or K1).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from ..ops.triplane import (build_quad, plane_grids, sample_triplane_nhwc,
                             sample_triplane_sparse, sample_triplane_sparse_quad,
                             sample_triplane_sparse_slab, tile_halo,
                             tokens_to_planes)
+from ..utils import profiling
 from .triplane_encoder import flatten_params
 from .upsampler import TriplaneUpsampler
 
@@ -137,11 +145,12 @@ class Renderer(nn.Module):
 
     def get_vertices(self, statics: RendererStatics, smpl_params: dict):
         """SMPL-X forward + static densification -> (BT, N, 3) fp32."""
-        verts = smplx_ops.forward(statics.smplx_model, smpl_params,
-                                  flat_hand_mean=self.cfg.flat_hand_mean)
-        if self.cfg.densify_smplx_verts and statics.sub_tables is not None:
-            verts = subdivision.apply_subdivision(verts, statics.sub_tables)
-            verts = verts[:, statics.subselect]
+        with profiling.span("render.body"):
+            verts = smplx_ops.forward(statics.smplx_model, smpl_params,
+                                      flat_hand_mean=self.cfg.flat_hand_mean)
+            if self.cfg.densify_smplx_verts and statics.sub_tables is not None:
+                verts = subdivision.apply_subdivision(verts, statics.sub_tables)
+                verts = verts[:, statics.subselect]
         return verts
 
     def _render_frame(self, planes_lr, points, transl, K, E):
@@ -151,19 +160,22 @@ class Renderer(nn.Module):
         cfg = self.cfg
         radius = cfg.radius
         if cfg.upsample_triplane and cfg.upsampler_sparse:
-            uv = plane_grids(points, radius).reshape(points.shape[0], 3, -1, 2)
-            planes = self.upsampler(planes_lr, points_uv=uv)
+            with profiling.span("render.upsample"):
+                uv = plane_grids(points, radius).reshape(points.shape[0], 3, -1, 2)
+                planes = self.upsampler(planes_lr, points_uv=uv)
             if cfg.sample_quad:
-                quad = build_quad(planes.tiles, planes.slot, planes.grid)
+                with profiling.span("render.sample"):
+                    quad = build_quad(planes.tiles, planes.slot, planes.grid)
 
                 def sample(p):
                     return sample_triplane_sparse_quad(planes, quad, p, radius)
             elif cfg.sample_slab:
                 # the haloed tiles built once, shared by both samplings
                 Fn, Pn = planes.tiles.shape[:2]
-                th = tile_halo(planes.tiles.flatten(0, 1), planes.slot.flatten(0, 1),
-                               planes.grid)
-                th = th.reshape((Fn, Pn) + th.shape[1:])
+                with profiling.span("render.sample"):
+                    th = tile_halo(planes.tiles.flatten(0, 1), planes.slot.flatten(0, 1),
+                                   planes.grid)
+                    th = th.reshape((Fn, Pn) + th.shape[1:])
 
                 def sample(p):
                     return sample_triplane_sparse_slab(planes, th, p, radius)
@@ -172,42 +184,47 @@ class Renderer(nn.Module):
                     return sample_triplane_sparse(planes, p, radius)
         else:
             if cfg.upsample_triplane:
-                planes = self.upsampler(planes_lr)                # (F, 3, H, W, C)
+                with profiling.span("render.upsample"):
+                    planes = self.upsampler(planes_lr)            # (F, 3, H, W, C)
             else:
                 planes = planes_lr.permute(0, 1, 3, 4, 2)         # (F, 3, R, R, C)
 
             def sample(p):
                 return sample_triplane_nhwc(planes, p, radius)
 
-        feats = sample(points)
-        if self.point_refiner is not None:
-            offsets = self.refine_mlp(self.point_refiner(points, feats))
-            points = points + offsets
+        with profiling.span("render.sample"):
             feats = sample(points)
+        if self.point_refiner is not None:
+            with profiling.span("render.refine"):
+                offsets = self.refine_mlp(self.point_refiner(points, feats))
+                points = points + offsets
+            with profiling.span("render.sample"):
+                feats = sample(points)
 
-        dec_in = torch.cat([points, feats], -1)
-        heads = self._heads()
-        w = torch.cat([h.weight for h in heads], 0)               # (11 + shs, 3C + 3)
-        b = torch.cat([h.bias for h in heads], 0)
-        xyz_off, rot, scale, opacity, shs = torch.split(
-            torch.nn.functional.linear(dec_in, w, b), [3, 4, 3, 1, self.shs_dim], -1)
-        rot = rot / torch.clamp(torch.linalg.norm(rot, dim=-1, keepdim=True), min=1e-8)
-        # colours through the sigmoid in both colour modes (reference quirk)
-        gaussians = {"xyz": points + xyz_off + transl, "scale": scale,
-                     "rot": rot, "opacity": opacity, "color": torch.sigmoid(shs)}
-        H, W = cfg.image_size
-        args = (gaussians["xyz"], rot, scale, opacity[..., 0], gaussians["color"],
-                K, E, W, H)
-        sh_degree = None if cfg.rgb else cfg.sh_degree
-        if cfg.splat_segmented:
-            img = render_frames_segmented(
-                *args, max_per_tile=cfg.max_per_tile,
-                max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap,
-                sh_degree=sh_degree)
-        else:
-            img = splat_tiles.render_frames(*args, max_per_tile=cfg.max_per_tile,
-                                            max_window=cfg.splat_max_window,
-                                            sh_degree=sh_degree)
+        with profiling.span("render.splat"):
+            dec_in = torch.cat([points, feats], -1)
+            heads = self._heads()
+            w = torch.cat([h.weight for h in heads], 0)           # (11 + shs, 3C + 3)
+            b = torch.cat([h.bias for h in heads], 0)
+            xyz_off, rot, scale, opacity, shs = torch.split(
+                torch.nn.functional.linear(dec_in, w, b), [3, 4, 3, 1, self.shs_dim], -1)
+            rot = rot / torch.clamp(torch.linalg.norm(rot, dim=-1, keepdim=True), min=1e-8)
+            # colours through the sigmoid in both colour modes (reference quirk)
+            gaussians = {"xyz": points + xyz_off + transl, "scale": scale,
+                         "rot": rot, "opacity": opacity, "color": torch.sigmoid(shs)}
+            H, W = cfg.image_size
+            args = (gaussians["xyz"], rot, scale, opacity[..., 0], gaussians["color"],
+                    K, E, W, H)
+            sh_degree = None if cfg.rgb else cfg.sh_degree
+            if cfg.splat_segmented:
+                img = render_frames_segmented(
+                    *args, max_per_tile=cfg.max_per_tile,
+                    max_window=cfg.splat_max_window, large_cap=cfg.splat_large_cap,
+                    sh_degree=sh_degree)
+            else:
+                img = splat_tiles.render_frames(*args, max_per_tile=cfg.max_per_tile,
+                                                max_window=cfg.splat_max_window,
+                                                sh_degree=sh_degree)
         return gaussians, img
 
     def forward(self, statics: RendererStatics, triplane_tokens: torch.Tensor,

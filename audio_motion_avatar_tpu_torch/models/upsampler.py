@@ -36,6 +36,7 @@ from ..ops import winograd
 from ..ops.splat_segmented import top_k_lower_index
 from ..parallel.tensor import (ModelAxis, copy_to_model, gather_from_model, local_part,
                                reduce_from_model)
+from ..utils import profiling
 
 CONV_IMPLS = ("xla", "winograd", "winograd_gn")
 
@@ -88,8 +89,9 @@ def upsample2x_conv3x3_dilated(x: torch.Tensor, w: torch.Tensor,
     applied to the 2x input-dilated, 2-padded plane equals a stride-2,
     padding-1 transposed conv with K4 flipped."""
     w, b = _cast(w, dtype), _cast(b, dtype)
-    T4 = torch.tensor([[1., 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]],
-                      dtype=w.dtype, device=w.device)
+    with profiling.host_sync("upsampler.t4"):
+        T4 = torch.tensor([[1., 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]],
+                          dtype=w.dtype, device=w.device)
     K4 = torch.einsum("ur,vs,oirs->oiuv", T4, T4, w)         # (Co, C, 4, 4)
     wt = K4.flip(2, 3).transpose(0, 1)                      # (C, Co, 4, 4)
     y = F.conv_transpose2d(_cast(x, dtype).permute(0, 3, 1, 2), wt, b,

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 _TRANS = (1, 2, 0)
 
@@ -65,7 +67,8 @@ def hilbert_encode(grid: torch.Tensor, depth: int = 10) -> torch.Tensor:
 
 def encode(grid: torch.Tensor, order: str = "z", depth: int = 10) -> torch.Tensor:
     if order.endswith("-trans"):
-        grid = grid[..., list(_TRANS)]
+        with profiling.host_sync("serialization.trans"):   # a host index copied to the card
+            grid = grid[..., list(_TRANS)]
         order = order[: -len("-trans")]
     if order == "z":
         return z_encode(grid, depth)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import fp32_geometry
+from ..utils import profiling
 from .rotations import axis_angle_to_matrix
 
 NUM_BODY_JOINTS = 21
@@ -100,9 +101,11 @@ def lbs(model: SmplxModel, betas: torch.Tensor, expression: torch.Tensor,
 
     parents = model.parents
     rel_joints = joints.clone()
-    rel_joints[:, 1:] -= joints[:, torch.as_tensor(parents[1:].astype(np.int64))]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(B, NUM_JOINTS, 1, 4)
+    with profiling.host_sync("smplx.parents"):       # a host index copied to the card
+        rel_joints[:, 1:] -= joints[:, torch.as_tensor(parents[1:].astype(np.int64))]
+    with profiling.host_sync("smplx.bottom"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
+                              device=rot_mats.device).expand(B, NUM_JOINTS, 1, 4)
     transforms_mat = torch.cat(
         [torch.cat([rot_mats, rel_joints[..., None]], -1), bottom], -2)
 

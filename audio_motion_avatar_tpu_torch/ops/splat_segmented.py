@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import profiling
 from .cameras import make_camera
 from .splat import (TILE, Projected, activate_opacity, activate_scales,
                     blend_tiles_plain, project_gaussians, view_colors)
@@ -138,7 +139,10 @@ def composite_segments_plain(params: torch.Tensor, starts: torch.Tensor,
         return torch.cat([g[:5], torch.where(live, g[5], torch.zeros_like(g[5]))[None],
                           g[6:]])
 
-    kmax = int(counts.max()) if T else 0
+    kmax = 0
+    if T:
+        with profiling.host_sync("splat.kmax"):
+            kmax = int(counts.max())
     return blend_tiles_plain(slot, kmax, T, tx, tiles_per_frame, params.device)
 
 

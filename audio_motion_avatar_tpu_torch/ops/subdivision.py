@@ -12,6 +12,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 class SubdivisionTables(NamedTuple):
     edges: Tuple[np.ndarray, ...]    # each (E_i, 2) int32 into the previous level
@@ -58,7 +60,8 @@ def apply_subdivision(verts: torch.Tensor,
     """(..., V, 3) -> (..., V', 3) by appending edge midpoints per step."""
     out = verts
     for edges in tables.edges:
-        e = torch.as_tensor(edges.astype(np.int64), device=verts.device)
+        with profiling.host_sync("subdivision.edges"):
+            e = torch.as_tensor(edges.astype(np.int64), device=verts.device)
         mids = 0.5 * (out[..., e[:, 0], :] + out[..., e[:, 1], :])
         out = torch.cat([out, mids], -2)
     return out
@@ -68,7 +71,8 @@ def face_center_densify(verts: torch.Tensor, faces: np.ndarray) -> torch.Tensor:
     """verts (..., V, 3) + static faces (F, 3) -> (..., V + F, 3): the
     face centroids appended (the stage-1 encoder's densification). The
     centroid is the sum times 1/3, as XLA lowers the JAX package's mean."""
-    f = torch.as_tensor(np.asarray(faces, np.int64), device=verts.device)
+    with profiling.host_sync("subdivision.faces"):
+        f = torch.as_tensor(np.asarray(faces, np.int64), device=verts.device)
     fv = verts[..., f.reshape(-1), :].reshape(verts.shape[:-2] + (f.shape[0], 3, 3))
     return torch.cat([verts, fv.sum(-2) * (1.0 / 3.0)], -2)
 

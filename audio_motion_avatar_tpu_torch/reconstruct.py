@@ -6,7 +6,9 @@ test|predict`.
 `Reconstructor` maps a reference batch (video, SMPL-X params, cameras) and
 an optional batch of test cameras and target images to the rendered
 reference views, the novel views, the gaussians and the `stage1_loss`
-metrics (training/stage1.py, run without autograd).
+metrics (training/stage1.py, run without autograd). Each call is one
+request of the port's tracer (utils/profiling.py: `recon.request`, its
+novel views `recon.novel`, its losses and read-back `recon.loss`).
 
 The Sapiens ViT runs in bf16 whatever the config says; the triplane
 encoder's SMPL-X predictor, the fusion transformer, the upsampler and the
@@ -28,6 +30,7 @@ from .models.renderer import RendererStatics, build_renderer_statics
 from .ops import smplx as smplx_ops
 from .serve import check_kernel_dtype, num_verts_encoder, with_dtype
 from .training.stage1 import stage1_loss
+from .utils import profiling
 from .utils.losses import psnr
 from .weights import init_weights
 
@@ -54,14 +57,26 @@ class Reconstructor:
         """Batches of tensors on the model's device (data.synthetic.to_device):
         ref video (B, T, 3, H, W) in [0, 1]; test_batch: the test cameras
         (B, T_test, ...) and their target images."""
-        _, metrics, out, novel = stage1_loss(self.model, self.statics, ref_batch,
-                                             test_batch, self.cfg)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        ref_hwc = ref_batch.video.permute(0, 1, 3, 4, 2)
-        metrics["psnr_train"] = float(psnr(out.rendered_images, ref_hwc))
-        if novel is not None:
-            metrics["psnr_test"] = float(psnr(novel, test_batch.video.permute(0, 1, 3, 4, 2)))
-        return Reconstruction(out.rendered_images, novel, out.gaussians, metrics, out)
+        with profiling.request("recon.request", self.device):
+            _, metrics, out, novel = stage1_loss(self.model, self.statics, ref_batch,
+                                                 test_batch, self.cfg)
+            with profiling.span("recon.loss"):
+                metrics = {k: read_back(v) for k, v in metrics.items()}
+                ref_hwc = ref_batch.video.permute(0, 1, 3, 4, 2)
+                metrics["psnr_train"] = read_back(psnr(out.rendered_images, ref_hwc))
+                if novel is not None:
+                    metrics["psnr_test"] = read_back(
+                        psnr(novel, test_batch.video.permute(0, 1, 3, 4, 2)))
+            return Reconstruction(out.rendered_images, novel, out.gaussians, metrics, out)
+
+
+def read_back(value) -> float:
+    """A metric as a Python float. A tensor's read-back, a host sync on the
+    card, is counted at site "recon.metrics" (utils/profiling.py)."""
+    if not torch.is_tensor(value):
+        return float(value)
+    with profiling.host_sync("recon.metrics"):
+        return float(value)
 
 
 def build_reconstructor(cfg: AvatarConfig, device=None,

@@ -9,7 +9,8 @@ frames into the initial token window (the demo's stage-1 pass, render off).
 `Rollout.chunks` runs several chunks in one call (main2's fused demo
 groups). `serve` is the host loop that answers requests in order, sliding
 the last-T_in token window from one chunk to the next, as the two-stream
-demo does.
+demo does. Each call of a Rollout is one request of the port's tracer
+(utils/profiling.py: `serve.request`).
 
 Geometry (SMPL-X FK/LBS, projection, splatting) runs in fp32 with TF32 off;
 the transformer, refiner and upsampler stacks run in cfg.compute_dtype
@@ -37,6 +38,7 @@ from .ops import smplx as smplx_ops
 from .ops.attention import KERNEL_HEAD_DIM
 from .ops.cameras import orbit_cameras
 from .parallel import mesh as pmesh
+from .utils import profiling
 from .weights import init_weights
 
 
@@ -60,12 +62,13 @@ class Rollout:
         (rendered (B, T_out, H, W, 3), tri window, smpl window, pred)."""
         T_in = tri.shape[1]
         m = self.mesh
-        rendered, out_tri, out_smpl, pred = self.model.rollout(
-            self.statics, pmesh.rows(tri, m), pmesh.rows(smpl, m), pmesh.rows(audio, m),
-            {k: pmesh.rows(v, m) for k, v in cams.items()})
-        return (pmesh.gather_rows(rendered, m), pmesh.gather_rows(out_tri[:, -T_in:], m),
-                pmesh.gather_rows(out_smpl[:, -T_in:], m),
-                {k: pmesh.gather_rows(v, m) for k, v in pred.items()})
+        with profiling.request("serve.request", self.device):
+            rendered, out_tri, out_smpl, pred = self.model.rollout(
+                self.statics, pmesh.rows(tri, m), pmesh.rows(smpl, m), pmesh.rows(audio, m),
+                {k: pmesh.rows(v, m) for k, v in cams.items()})
+            return (pmesh.gather_rows(rendered, m), pmesh.gather_rows(out_tri[:, -T_in:], m),
+                    pmesh.gather_rows(out_smpl[:, -T_in:], m),
+                    {k: pmesh.gather_rows(v, m) for k, v in pred.items()})
 
     @torch.no_grad()
     def chunks(self, tri: torch.Tensor, smpl: torch.Tensor, audio: torch.Tensor,

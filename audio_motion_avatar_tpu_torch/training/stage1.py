@@ -23,6 +23,7 @@ import torch
 from ..data.synthetic import VideoBatch
 from ..ops.splat_tiles import render_multi_view
 from ..utils import losses as L
+from ..utils import profiling
 from .train_state import TrainState, check_differentiable
 
 
@@ -34,8 +35,9 @@ def stage1_loss(model, statics, ref_batch: VideoBatch,
     ref_video = ref_batch.video
     out = model(statics, ref_video, ref_batch.smpl_parms, ref_batch.cam_parms)
     ref_hwc = ref_video.permute(0, 1, 3, 4, 2)
-    l1_train = L.l1_loss(out.rendered_images, ref_hwc)
-    ssim_train = 1.0 - L.ssim(out.rendered_images, ref_hwc)
+    with profiling.span("recon.loss"):
+        l1_train = L.l1_loss(out.rendered_images, ref_hwc)
+        ssim_train = 1.0 - L.ssim(out.rendered_images, ref_hwc)
     loss = l1_train + 0.1 * ssim_train
     metrics = {"l1_train": l1_train, "ssim_train": ssim_train}
 
@@ -45,13 +47,15 @@ def stage1_loss(model, statics, ref_batch: VideoBatch,
         gaussians_b = {k: v.reshape((B, -1) + v.shape[1:])[:, 0]
                        for k, v in out.gaussians.items() if k != "shs"}
         H, W = cfg.image_size
-        novel = render_multi_view(gaussians_b, test_batch.cam_parms["intrinsic"],
-                                  test_batch.cam_parms["extrinsic"], W, H,
-                                  max_per_tile=cfg.max_per_tile,
-                                  sh_degree=None if cfg.rgb else cfg.sh_degree)
+        with profiling.span("recon.novel"):
+            novel = render_multi_view(gaussians_b, test_batch.cam_parms["intrinsic"],
+                                      test_batch.cam_parms["extrinsic"], W, H,
+                                      max_per_tile=cfg.max_per_tile,
+                                      sh_degree=None if cfg.rgb else cfg.sh_degree)
         test_hwc = test_batch.video.permute(0, 1, 3, 4, 2)
-        l1_test = L.l1_loss(novel, test_hwc)
-        ssim_test = 1.0 - L.ssim(novel, test_hwc)
+        with profiling.span("recon.loss"):
+            l1_test = L.l1_loss(novel, test_hwc)
+            ssim_test = 1.0 - L.ssim(novel, test_hwc)
         loss = loss + l1_test + 0.1 * ssim_test
         metrics.update(l1_test=l1_test, ssim_test=ssim_test)
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..device import fp32_geometry
 from ..ops.rotations import axis_angle_to_matrix
+from . import profiling
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -48,7 +49,8 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     x = img1.reshape((-1,) + img1.shape[2:]).permute(0, 3, 1, 2)   # (BT, C, H, W)
     y = img2.reshape((-1,) + img2.shape[2:]).permute(0, 3, 1, 2)
     C = x.shape[1]
-    w = gaussian_window(window_size).to(x.device, x.dtype)
+    with profiling.host_sync("losses.ssim_window"):
+        w = gaussian_window(window_size).to(x.device, x.dtype)
     kernel = w[None, None].expand(C, 1, window_size, window_size)
 
     def blur(im):

@@ -1,0 +1,13 @@
+"""Device-stream ms a serving request in the triplane upsampler: the port's
+`render.upsample` span, each frame chunk's summed, the idle gaps inside
+included."""
+
+from benchmark.program_trace import span_ms
+
+LAYER = "renderer (models/renderer.py)"
+MOVES = "fps"
+UNIT = "ms/req"
+
+
+def read(run):
+    return span_ms(run, "render.upsample")

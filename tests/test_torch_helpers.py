@@ -2,10 +2,10 @@
 
 ops/mesh_utils.py, utils/losses.chamfer_distance, utils/lpips.py (random
 weights from a numpy seed carried by weights.convert_subtree, the rule
-params_from_flax applies leaf by leaf) and utils/profiling.py; with the
-JAX package's own cases of these modules (tests/test_mesh_utils.py,
-test_lpips_smoke, tests/test_utils_graphics.py's StageTimer and timed) run
-on the port.
+params_from_flax applies leaf by leaf) and utils/profiling.py's exporter;
+with the JAX package's own cases of these modules (tests/test_mesh_utils.py,
+test_lpips_smoke) run on the port. The port's tracer has its own tests
+(tests/test_torch_tracing.py).
 
 Tolerances: normals, clip coordinates and the Laplacian loss 1e-6, face frames
 1e-5 (the same fp32 operations); chamfer 1e-5 relative (sums reassociated);
@@ -26,8 +26,8 @@ from audio_motion_avatar_tpu_torch.ops import mesh_utils as M
 from audio_motion_avatar_tpu_torch.ops import smplx as tsmplx
 from audio_motion_avatar_tpu_torch.utils import lpips as tlpips
 from audio_motion_avatar_tpu_torch.utils.losses import chamfer_distance
-from audio_motion_avatar_tpu_torch.utils.profiling import (StageTimer, annotate,
-                                                           device_memory_stats, timed, trace)
+from audio_motion_avatar_tpu_torch.utils import profiling
+from audio_motion_avatar_tpu_torch.utils.profiling import trace
 from audio_motion_avatar_tpu_torch.weights import convert_subtree
 from torch_parity import one_torch_thread, random_params, t  # noqa: F401
 
@@ -167,30 +167,16 @@ def test_lpips_smoke():
 
 # --- profiling -------------------------------------------------------------
 
-def test_stage_timer():
-    tm = StageTimer()
-    with tm.stage("a"):
-        pass
-    with tm.stage("a"):
-        pass
-    assert tm.counts["a"] == 2
-    assert "a=" in tm.summary()
-
-
-def test_timed():
-    dt, out = timed(lambda x: x * 2, torch.ones(4), iters=2)
-    assert dt >= 0
-    assert float(out.sum()) == 8.0
-
-
 def test_trace_annotate_and_memory_stats(tmp_path):
+    """`trace` writes a profiler trace in which each span of the port's
+    tracer is a named range (the annotation), and leaves the tracer off."""
     with trace(str(tmp_path)) as prof:
-        with annotate("double"):
-            torch.ones(8) * 2
-    assert any(e.name == "double" for e in prof.events())
+        with profiling.request("double.request", "cpu"):
+            with profiling.span("double"):
+                torch.ones(8) * 2
+    assert {"double.request", "double"} <= {e.name for e in prof.events()}
     assert any(tmp_path.iterdir())
-    stats = device_memory_stats()
-    if torch.cuda.is_available():
-        assert set(stats) == {"bytes_in_use_mb", "peak_bytes_mb", "bytes_limit_mb"}
-    else:
-        assert stats == {}
+    assert not profiling.TRACER.on
+    (rec,) = [r for r in profiling.records() if r["name"] == "double.request"]
+    assert [s["name"] for s in rec["spans"]] == ["double.request", "double"]
+    profiling.reset()
