@@ -64,6 +64,9 @@ KERNELS = {
         "winograd.cu", (),
         {"winograd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
          "winograd_smem": ([_I], _I)}),
+    "sfc_codes": (
+        "sfc_codes.cu", (),
+        {"sfc_codes_launch": ([_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

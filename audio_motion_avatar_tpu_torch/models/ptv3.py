@@ -6,7 +6,9 @@ alternating across blocks; dense multi-head attention inside patches of
 along the curve as the positional encoding (xCPE); fixed-window (4) max
 pooling on the z curve; U-Net decoder with skip connections. Point counts
 are padded to a multiple of the patch size and masked (valid first).
-Argsorts are stable and codes int32, as the JAX package's.
+Argsorts are stable and codes int32, as the JAX package's; a level's codes
+in every order come from one call (`ops/serialization.sfc_codes`, kernel SFC
+on the card) and one stable sort over all of them.
 
 Patch attention with head width 64 (the decoder's first stage at serving
 widths) runs through kernel A with a key mask; narrower heads use the dense
@@ -34,7 +36,6 @@ from .transformer import (LayerNorm, head_attention, linear, merge_heads, row_li
                           split_heads)
 
 POOL_WINDOW = 4
-PAD_CODE = 2 ** 30
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -51,15 +52,14 @@ def invert_perm(perm: torch.Tensor) -> torch.Tensor:
 
 def _orders(pts: torch.Tensor, mask: torch.Tensor, grid_resolution: float,
             names: Sequence[str]) -> dict:
-    grid = ser.grid_coords(pts, grid_resolution)
-    out = {}
-    for o in names:
-        code = torch.where(mask, ser.encode(grid, o),
-                           torch.full((), PAD_CODE, dtype=torch.int32,
-                                      device=pts.device))
-        perm = torch.argsort(code, dim=1, stable=True)
-        out[o] = (perm, invert_perm(perm))
-    return out
+    """{order: (perm, inv)} of one level: every order's codes at once
+    (`ser.sfc_codes`), one stable sort and one inverse for all of them."""
+    codes = ser.sfc_codes(pts.contiguous(), mask, grid_resolution, names)
+    K, B, N = codes.shape
+    perm = torch.argsort(codes.reshape(K * B, N), dim=1, stable=True)
+    inv = invert_perm(perm)
+    perm, inv = perm.view(K, B, N), inv.view(K, B, N)
+    return {o: (perm[k], inv[k]) for k, o in enumerate(names)}
 
 
 class _SerialCpe(nn.Module):

@@ -3,16 +3,22 @@
 z-order (Morton) codes by bit interleaving and Hilbert codes by the
 Skilling transform, 10 bits per axis (30-bit codes fit int32); "-trans"
 orders permute the axes (1, 2, 0) before encoding.
+
+`sfc_codes` gives one PTv3 level's codes in every order asked for: kernel
+SFC (`csrc/sfc_codes.cu`, two launches) on CUDA tensors, its plain version
+`sfc_codes_plain` (the chain below, op by op) on CPU tensors, bit-identical.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from ..utils import profiling
+from .. import kernels
 
 ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
-_TRANS = (1, 2, 0)
+PAD_CODE = 2 ** 30      # the code of a masked point: sorts after every real code
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -67,8 +73,7 @@ def hilbert_encode(grid: torch.Tensor, depth: int = 10) -> torch.Tensor:
 
 def encode(grid: torch.Tensor, order: str = "z", depth: int = 10) -> torch.Tensor:
     if order.endswith("-trans"):
-        with profiling.host_sync("serialization.trans"):   # a host index copied to the card
-            grid = grid[..., list(_TRANS)]
+        grid = torch.roll(grid, -1, dims=-1)                 # axes (1, 2, 0)
         order = order[: -len("-trans")]
     if order == "z":
         return z_encode(grid, depth)
@@ -84,3 +89,62 @@ def grid_coords(points: torch.Tensor, grid_resolution: float,
     g = torch.floor(points * grid_resolution).to(torch.int32)
     g = g - g.amin(dim=-2, keepdim=True)
     return torch.clamp(g, 0, (1 << depth) - 1)
+
+
+def sfc_codes_plain(points: torch.Tensor, mask: torch.Tensor, grid_resolution: float,
+                    orders: Sequence[str]) -> torch.Tensor:
+    """Plain version of kernel SFC: points (B, N, 3), mask (N,) bool valid
+    -> (K, B, N) int32 10-bit-an-axis codes of the K `orders` (PAD_CODE
+    where masked), the grid's minimum taken over every row of a cloud,
+    masked ones included."""
+    grid = grid_coords(points, grid_resolution)
+    pad = torch.full((), PAD_CODE, dtype=torch.int32, device=points.device)
+    return torch.stack([torch.where(mask, encode(grid, o), pad) for o in orders])
+
+
+def sfc_codes(points: torch.Tensor, mask: torch.Tensor, grid_resolution: float,
+              orders: Sequence[str]) -> torch.Tensor:
+    """Kernel SFC on CUDA tensors, its plain version on CPU tensors: points
+    (B, N, 3) float32, mask (N,) bool -> (K, B, N) int32 codes, the same
+    bits either way."""
+    if points.device.type == "cpu":
+        return sfc_codes_plain(points, mask, grid_resolution, orders)
+    _check_codes_args(points, mask, orders)
+    B, N, _ = points.shape
+    K = len(orders)
+    ids = 0
+    for k, o in enumerate(orders):
+        ids |= ORDERS.index(o) << (2 * k)
+    # the codes and, after them, the min pass's (B, 3) scratch: one allocation
+    buf = torch.empty(K * B * N + 3 * B, dtype=torch.int32, device=points.device)
+    out = buf[:K * B * N].view(K, B, N)
+    lib = kernels.library("sfc_codes")
+    rc = lib.sfc_codes_launch(points.data_ptr(), mask.data_ptr(),
+                              buf.data_ptr() + 4 * K * B * N, out.data_ptr(),
+                              B, N, float(grid_resolution), K, ids,
+                              kernels.stream_ptr(points.device))
+    kernels.check(rc, "sfc_codes")
+    sfc_codes.launches += 1
+    return out
+
+
+sfc_codes.launches = 0
+
+
+def _check_codes_args(points: torch.Tensor, mask: torch.Tensor,
+                      orders: Sequence[str]) -> None:
+    """Kernel SFC's checks on a CUDA points tensor."""
+    if points.device.type != "cuda":
+        raise ValueError(f"sfc_codes: unsupported device {points.device}")
+    if points.dtype != torch.float32:
+        raise ValueError(f"sfc_codes: points must be float32, got {points.dtype}")
+    if points.dim() != 3 or points.shape[2] != 3 or not points.is_contiguous():
+        raise ValueError(f"sfc_codes: expected contiguous (B, N, 3) points, "
+                         f"got {tuple(points.shape)}")
+    N = points.shape[1]
+    if (mask.dtype != torch.bool or mask.shape != (N,) or not mask.is_contiguous()
+            or mask.device != points.device):
+        raise ValueError(f"sfc_codes: mask must be a contiguous ({N},) bool tensor on "
+                         f"{points.device}, got {tuple(mask.shape)} {mask.dtype}")
+    if not 1 <= len(orders) <= len(ORDERS) or any(o not in ORDERS for o in orders):
+        raise ValueError(f"sfc_codes: orders must be 1 to 4 of {ORDERS}, got {orders}")

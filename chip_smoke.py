@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--parent DIR]
 
 Phases (any failure exits non-zero):
-  1. build   — compiles the eight CUDA sources from audio_motion_avatar_tpu_torch/csrc
+  1. build   — compiles the nine CUDA sources from audio_motion_avatar_tpu_torch/csrc
                (one nvcc per source, in parallel) into build/kernels/, with
                ptxas's registers and spills (printed again beside A, K2,
                A-bwd and K9a / K9b);
@@ -56,6 +56,12 @@ Phases (any failure exits non-zero):
                input transform once or (K9b) leaving the padded border to the
                affine; timed beside the plain versions, the bounds and
                F.conv2d (for K9b the chain relu(a x + c), F.conv2d);
+               SFC (PTv3's curve codes, every order of a level in one call)
+               at the five serving levels, bit-exact against its plain
+               version, `_orders` equal to the parent's per-order chain,
+               timed at 6 x 30,208 points beside its bound and the plain
+               chain; PTv3 at serving widths on a chunk's 6 x 30,000 points
+               bit-identical with the parent's per-order chain in its place;
   2c. parent comparison (only with --parent DIR, DIR holding an earlier
                tree's audio_motion_avatar_tpu_torch/csrc, e.g. unpacked by git
                archive under build/) — that tree's Q, Q-bwd (through its
@@ -622,6 +628,138 @@ def check_quad(dev):
     return {"name": "quad_rows", "err": err, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
             "shape": f"{tuple(tiles.shape)} bf16"}
+
+
+def sfc_levels(dev, B=6):
+    """PTv3's serialization inputs at the serving chunk, a level each: B
+    clouds of 30,000 points (spread as the body) padded to 30,208 (59
+    patches of 512), then pooled by 4 and padded to the patch, as
+    PTv3Encoder.forward pools them: [(points (B, N, 3), mask (N,), orders)]
+    with zero padding rows. Level 0 takes the four orders, the pooled
+    levels the three but z."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import serialization as ser
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    P, valid, n = 512, 30000, 30208
+    levels = []
+    for lvl in range(5):
+        pts = torch.zeros(B, n, 3, device=dev)
+        pts[:, :valid] = torch.randn(B, valid, 3, device=dev, generator=g) * \
+            torch.tensor([0.25, 0.6, 0.15], device=dev)
+        mask = torch.arange(n, device=dev) < valid
+        levels.append((pts, mask, ser.ORDERS if lvl == 0 else ser.ORDERS[1:]))
+        valid, n = -(-valid // 4), n // 4
+        n = -(-n // P) * P if n > P else n
+    return levels
+
+
+def parent_orders(pts, mask, grid_resolution, names):
+    """The parent's `ptv3._orders`: each order's codes by the plain chain,
+    its own stable argsort and inverse."""
+    import torch
+    from audio_motion_avatar_tpu_torch.models.ptv3 import invert_perm
+    from audio_motion_avatar_tpu_torch.ops import serialization as ser
+
+    grid = ser.grid_coords(pts, grid_resolution)
+    out = {}
+    for o in names:
+        code = torch.where(mask, ser.encode(grid, o),
+                           torch.full((), ser.PAD_CODE, dtype=torch.int32, device=pts.device))
+        perm = torch.argsort(code, dim=1, stable=True)
+        out[o] = (perm, invert_perm(perm))
+    return out
+
+
+def check_sfc_codes(dev):
+    """Kernel SFC at PTv3's five serving levels (`sfc_levels`): bit-exact
+    against its plain version; at level 0 (6 x 30,208 points, 4 orders) its
+    time by CUDA events and as device time beside its bound (bytes: the
+    points and the mask read once, the codes written once) and the plain
+    chain's; each level's `_orders` (the kernel, one sort, one inverse)
+    against the parent's per-order chain, equal permutations, and both
+    timed on the host clock to the end of their work."""
+    import torch
+    from audio_motion_avatar_tpu_torch.models import ptv3
+    from audio_motion_avatar_tpu_torch.ops import serialization as ser
+
+    res = 100.0
+    levels = sfc_levels(dev)
+    for pts, mask, orders in levels:
+        got = ser.sfc_codes(pts, mask, res, orders)
+        want = ser.sfc_codes_plain(pts, mask, res, orders)
+        new, old = ptv3._orders(pts, mask, res, orders), parent_orders(pts, mask, res, orders)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        same = all(torch.equal(new[o][0], old[o][0]) and torch.equal(new[o][1], old[o][1])
+                   for o in orders)
+        print(f"[kernels] SFC sfc_codes {tuple(pts.shape)} x {len(orders)} orders: "
+              f"bit-exact={exact}; _orders equal to the per-order chain={same}", flush=True)
+        if not (exact and same):
+            raise AssertionError(f"kernel SFC bit-exact {exact}, _orders equal {same}")
+
+    def wall_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / iters
+
+    new_ms = sum(wall_ms(lambda: ptv3._orders(p, m, res, o)) for p, m, o in levels)
+    old_ms = sum(wall_ms(lambda: parent_orders(p, m, res, o), 5) for p, m, o in levels)
+    pts, mask, orders = levels[0]
+    B, N, _ = pts.shape
+    nbytes = B * N * 12 + N + len(orders) * B * N * 4
+    bound_ms, by = bound(0.0, PEAK_BF16_FLOPS, nbytes)
+    ms = time_ms(lambda: ser.sfc_codes(pts, mask, res, orders), 50)
+    device_ms = graph_ms(lambda: ser.sfc_codes(pts, mask, res, orders), launches=20)
+    plain_ms = time_ms(lambda: ser.sfc_codes_plain(pts, mask, res, orders), 5)
+    plain_device_ms = graph_ms(lambda: ser.sfc_codes_plain(pts, mask, res, orders),
+                               launches=2, replays=5)
+    print(f"[kernels] SFC alone at {tuple(pts.shape)} x {len(orders)} orders: {ms:.4f} ms "
+          f"(device time {device_ms:.4f} ms, two launches), {bound_ms / device_ms:.1%} of its "
+          f"bound {bound_ms:.5f} ms ({by}); plain chain {plain_ms:.3f} ms (device time "
+          f"{plain_device_ms:.3f} ms); a PTv3 call's five levels of _orders on the host clock "
+          f"{new_ms:.3f} ms, the parent's per-order chain {old_ms:.3f} ms", flush=True)
+    return {"name": "sfc_codes", "err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "orders_ms": new_ms, "parent_orders_ms": old_ms,
+            "shape": f"{tuple(pts.shape)} fp32 x {len(orders)} orders"}
+
+
+def check_ptv3_codes(dev):
+    """PTv3 at the serving widths (bf16, seeded) on one serving chunk's
+    points (6 x 30,000) and features: its output with kernel SFC's
+    `_orders` equals, bit for bit, its output with the parent's per-order
+    chain in their place."""
+    import torch
+    from audio_motion_avatar_tpu_torch.models import ptv3
+    from audio_motion_avatar_tpu_torch.models.config import AvatarConfig, serving_config
+    from audio_motion_avatar_tpu_torch.weights import init_weights
+
+    cfg = serving_config(AvatarConfig(), image_size=(512, 512), upsampler_norm="affine")
+    model = ptv3.build_point_refiner(cfg, dtype=torch.bfloat16)
+    init_weights(model, seed=5)
+    model = model.to(dev).eval()
+    pts, _, _ = sfc_levels(dev)[0]
+    pts = pts[:, :30000].contiguous()
+    g = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.randn(6, 30000, 3 * cfg.triplane_feature_dim, device=dev, generator=g)
+    with torch.no_grad():
+        got = model(pts, feats)
+        orders, ptv3._orders = ptv3._orders, parent_orders
+        try:
+            want = model(pts, feats)
+        finally:
+            ptv3._orders = orders
+    torch.cuda.synchronize()
+    exact = torch.equal(bits(got), bits(want))
+    print(f"[kernels] PTv3 on a serving chunk {tuple(pts.shape)}: output with kernel SFC "
+          f"bit-identical to the parent's per-order chain={exact}", flush=True)
+    if not exact:
+        raise AssertionError("PTv3 with kernel SFC differs from the parent's serialization")
 
 
 def bits(x):
@@ -1764,6 +1902,7 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
     from audio_motion_avatar_tpu_torch.ops import attention as at
     from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
     from audio_motion_avatar_tpu_torch.ops import triplane as tp
+    from audio_motion_avatar_tpu_torch.ops import serialization as ser
     from audio_motion_avatar_tpu_torch.ops import winograd as W
     from audio_motion_avatar_tpu_torch.serve import build_rollout, serve, synthetic_inputs
     from audio_motion_avatar_tpu_torch.weights import perturb_heads
@@ -1788,7 +1927,8 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
           flush=True)
-    counters = (at.attention, tp.quad_rows, ss.composite_segments, W.winograd_conv3x3)
+    counters = (at.attention, tp.quad_rows, ss.composite_segments, W.winograd_conv3x3,
+                ser.sfc_codes)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1814,7 +1954,9 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
         "attention": mcfg.audio_transformer_layers * T_out
         + (mcfg.ptv3_dec_depths[0] * n_chunks if dec0_d == 64 else 0),
         "quad_rows": n_chunks, "composite_segments": n_chunks,
-        "winograd_conv3x3": upsampler_launches(mcfg)[0] * n_chunks}
+        "winograd_conv3x3": upsampler_launches(mcfg)[0] * n_chunks,
+        # kernel SFC: one launch a PTv3 level, a PTv3 call a chunk
+        "sfc_codes": 0 if mcfg.no_point_refiner else len(mcfg.ptv3_enc_channels) * n_chunks}
     expected = {k: v * requests for k, v in per_request.items()}
     print(f"[{tag}] launches {launches} expected {expected}", flush=True)
     if launches != expected:
@@ -5245,8 +5387,9 @@ def main():
 
     def kernel_checks():
         out = [check_splat(dev), check_quad(dev), check_quad_bwd(dev), check_attention(dev),
-               check_tiles(dev)]
+               check_tiles(dev), check_sfc_codes(dev)]
         check_attention_stage1(dev)
+        check_ptv3_codes(dev)
         return out + [check_tiles_bwd(dev), check_attention_bwd(dev), *check_winograd(dev)]
 
     checks = phase("2 kernels", kernel_checks)
@@ -5324,7 +5467,7 @@ def main():
                 "attention_bwd": train1["attention_bwd"] + train2["attention_bwd"]
                 + idol16["attention_bwd"],
                 "winograd": wino["winograd_conv3x3"], "winograd_gn": rec_gn[k9b] + train_gn[k9b],
-                "splash": wino["attention"]}
+                "splash": wino["attention"], "sfc_codes": roll["sfc_codes"]}
     for name, fn in (("splat_segments", "composite_segments"), ("quad_rows", "quad_rows"),
                      ("attention", "attention"), ("splat_tiles", "composite_tiles"),
                      ("splat_tiles_bwd", "composite_tiles_bwd"),
@@ -5343,7 +5486,9 @@ def main():
                "attention_bwd": ("attention_bwd.cu", pallas + "models/transformer.py:261"),
                "winograd": ("winograd.cu", pallas + "ops/winograd.py:201"),
                "winograd_gn": ("winograd.cu", pallas + "ops/winograd.py:275"),
-               "splash": ("attention.cu", pallas + "models/transformer.py:314")}
+               "splash": ("attention.cu", pallas + "models/transformer.py:314"),
+               "sfc_codes": ("sfc_codes.cu", "none: XLA fuses " + pallas
+                             + "ops/serialization.py")}
     # splash is kernel A under the JAX package's splash name: A's numbers
     checks.append(dict(next(c for c in checks if c["name"] == "attention"), name="splash"))
     line = []

@@ -17,7 +17,8 @@ tolerance for its backward kernel) and atol 1e-5 of the largest |ref| (the
 per-slot sums over a tile's 256 pixels are added in another order); K9a and
 K9b (Winograd) against their plain versions on the same bf16 inputs under
 ops/winograd.excess_error (every |diff| <= 2^-7 |ref| + 2^-8 RMS(ref), the
-mean within 1e-2 of the Winograd-vs-direct distance).
+mean within 1e-2 of the Winograd-vs-direct distance). SFC (the curve
+codes) bit-exact: integers after one fp32 multiply.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from audio_motion_avatar_tpu_torch.ops import attention as at
+from audio_motion_avatar_tpu_torch.ops import serialization as ser
 from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
 from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
 from audio_motion_avatar_tpu_torch.ops import triplane as tp
@@ -664,3 +666,65 @@ def test_splash_route_is_kernel_a(cuda):
         want = linear(merge_heads(at.attention(q, k, v, 0.125)), attn.out, bf16)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _sfc_clouds(cuda, B, N, seed):
+    """(B, N, 3) float32 clouds with the last eighth of the rows zero
+    padding, masked: continuous coordinates (negative ones among them),
+    whole cells from -300 to 1500 a side (grid 0, 1023 and clamped), points
+    at k / 100 (on the cell edges, where the product's rounding decides the
+    cell), and positive-only coordinates (the padding sets the minimum)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_valid = N - N // 8
+    kinds = [torch.randn(n_valid, 3, generator=g, device=cuda) * 0.6,
+             (torch.randint(-300, 1500, (n_valid, 3), generator=g, device=cuda) + 0.5) / 100,
+             torch.randint(-500, 500, (n_valid, 3), generator=g, device=cuda) / 100,
+             torch.rand(n_valid, 3, generator=g, device=cuda) * 2 + 0.5]
+    pts = torch.zeros(B, N, 3, device=cuda)
+    for b in range(B):
+        pts[b, :n_valid] = kinds[b % len(kinds)]
+    return pts, torch.arange(N, device=cuda) < n_valid
+
+
+@pytest.mark.parametrize("B,N,orders", [
+    (6, 30720, ser.ORDERS), (6, 30208, ser.ORDERS), (6, 7680, ser.ORDERS[1:]),
+    (6, 2048, ser.ORDERS[1:]), (6, 512, ser.ORDERS[1:]), (6, 128, ser.ORDERS[1:]),
+    (1, 30720, ser.ORDERS),
+    (3, 333, ("hilbert-trans", "z")),
+])
+def test_sfc_codes_kernel_bit_exact(cuda, B, N, orders):
+    """Kernel SFC against its plain version (on the card and on the CPU)
+    bit for bit at PTv3's serving levels (6 clouds of 30,720 and of 30,208
+    points, then pooled by 4 and padded to the patch of 512), one cloud (the
+    reconstruction), a ragged N and orders in another sequence; a second
+    launch alike; the launch counter one a call."""
+    pts, mask = _sfc_clouds(cuda, B, N, seed=N)
+    before = ser.sfc_codes.launches
+    got = ser.sfc_codes(pts, mask, 100.0, orders)
+    again = ser.sfc_codes(pts, mask, 100.0, orders)
+    assert ser.sfc_codes.launches == before + 2
+    want = ser.sfc_codes_plain(pts, mask, 100.0, orders)
+    cpu = ser.sfc_codes_plain(pts.cpu(), mask.cpu(), 100.0, orders)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (len(orders), B, N)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert torch.equal(cpu, want.cpu())
+    assert bool((got[:, :, ~mask] == ser.PAD_CODE).all())
+
+
+def test_sfc_codes_wrapper_validates(cuda):
+    pts, mask = _sfc_clouds(cuda, 2, 64, seed=0)
+    with pytest.raises(ValueError, match="float32"):
+        ser.sfc_codes(pts.half(), mask, 100.0, ser.ORDERS)
+    with pytest.raises(ValueError, match="contiguous"):
+        ser.sfc_codes(pts.transpose(0, 1).contiguous().transpose(0, 1), mask, 100.0, ser.ORDERS)
+    with pytest.raises(ValueError, match="contiguous"):
+        ser.sfc_codes(pts[..., :2], mask, 100.0, ser.ORDERS)
+    with pytest.raises(ValueError, match="mask"):
+        ser.sfc_codes(pts, mask.to(torch.uint8), 100.0, ser.ORDERS)
+    with pytest.raises(ValueError, match="mask"):
+        ser.sfc_codes(pts, mask[:-1], 100.0, ser.ORDERS)
+    with pytest.raises(ValueError, match="orders"):
+        ser.sfc_codes(pts, mask, 100.0, ["hilbert", "peano"])
+    with pytest.raises(ValueError, match="orders"):
+        ser.sfc_codes(pts, mask, 100.0, [])

@@ -29,11 +29,10 @@ SERVE_OVERRIDES = dict(num_upsample_blocks=2, max_per_tile=512, upsampler_sparse
 RENDER = ("render.body", "render.upsample", "render.sample", "render.refine", "render.splat")
 # the host syncs of one tiny request by site (on the CPU every site counts
 # where it is passed; kernel S, on the card, reads no kmax)
-SERVE_SYNCS = {"smplx.parents": 1, "smplx.bottom": 1, "upsampler.t4": 4,
-               "serialization.trans": 8, "splat.kmax": 2}
+SERVE_SYNCS = {"smplx.parents": 1, "smplx.bottom": 1, "upsampler.t4": 4, "splat.kmax": 2}
 RECON_SYNCS = {"image_encoder.normalize": 2, "image_encoder.resize": 2, "smplx.parents": 2,
                "smplx.bottom": 2, "subdivision.faces": 1, "upsampler.t4": 2,
-               "serialization.trans": 8, "losses.ssim_window": 2, "recon.metrics": 14}
+               "losses.ssim_window": 2, "recon.metrics": 14}
 
 
 @pytest.fixture
