@@ -11,7 +11,8 @@
 //   g = floor(p * res) as int32 (one fp32 multiply, rounded to nearest, as
 //       PyTorch's tensor-by-scalar product), less the cloud's per-axis
 //       minimum over every row (the zero padding rows included), clamped to
-//       [0, 1023];
+//       [0, 2^depth - 1] (depth, the bits an axis, 1 to 10; 10 by default;
+//       Morton codes do not depend on it, Hilbert codes do);
 //   per order: the "-trans" rotation of the axes (1, 2, 0), then the Morton
 //       code (bits spread by `part1by2`) or the Hilbert code by the
 //       Skilling transform, step for step, whose transposed bits are
@@ -37,7 +38,6 @@
 
 namespace {
 
-constexpr int kMaxCoord = 1023;   // 10 bits an axis
 constexpr int kPadCode = 1 << 30;
 
 __device__ __forceinline__ int grid_coord(float p, float res) {
@@ -57,10 +57,9 @@ __device__ __forceinline__ int morton(int x, int y, int z) {
   return part1by2(x) | (part1by2(y) << 1) | (part1by2(z) << 2);
 }
 
-__device__ __forceinline__ int hilbert(int x0, int x1, int x2) {
+__device__ __forceinline__ int hilbert(int x0, int x1, int x2, int depth) {
   // the Skilling transform to the Hilbert-transposed form
-#pragma unroll
-  for (int q = 1 << 9; q > 1; q >>= 1) {
+  for (int q = 1 << (depth - 1); q > 1; q >>= 1) {
     const int p = q - 1;
     x0 = (x0 & q) ? (x0 ^ p) : x0;
     {
@@ -82,8 +81,7 @@ __device__ __forceinline__ int hilbert(int x0, int x1, int x2) {
   x1 ^= x0;
   x2 ^= x1;
   int t = 0;
-#pragma unroll
-  for (int q = 1 << 9; q > 1; q >>= 1) t = (x2 & q) ? (t ^ (q - 1)) : t;
+  for (int q = 1 << (depth - 1); q > 1; q >>= 1) t = (x2 & q) ? (t ^ (q - 1)) : t;
   x0 ^= t;
   x1 ^= t;
   x2 ^= t;
@@ -125,7 +123,7 @@ __global__ void __launch_bounds__(1024) sfc_min_kernel(
 // rotation, bit 1 Hilbert (0 z, 1 z-trans, 2 hilbert, 3 hilbert-trans)
 __global__ void __launch_bounds__(256) sfc_codes_kernel(
     const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-    const int* __restrict__ gmin, int B, int n, float res, int K, int orders,
+    const int* __restrict__ gmin, int B, int n, float res, int K, int orders, int depth,
     int* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
@@ -136,7 +134,7 @@ __global__ void __launch_bounds__(256) sfc_codes_kernel(
   for (int a = 0; a < 3; ++a) {
     // unsigned difference: two's-complement wrap, as the int32 tensor op
     const int d = (int)((unsigned)grid_coord(p[a], res) - (unsigned)gmin[b * 3 + a]);
-    g[a] = min(max(d, 0), kMaxCoord);
+    g[a] = min(max(d, 0), (1 << depth) - 1);
   }
   const bool valid = mask[i] != 0;
   for (int k = 0; k < K; ++k) {
@@ -146,7 +144,7 @@ __global__ void __launch_bounds__(256) sfc_codes_kernel(
       const int x = (o & 1) ? g[1] : g[0];
       const int y = (o & 1) ? g[2] : g[1];
       const int z = (o & 1) ? g[0] : g[2];
-      code = (o & 2) ? hilbert(x, y, z) : morton(x, y, z);
+      code = (o & 2) ? hilbert(x, y, z, depth) : morton(x, y, z);
     }
     out[((long long)k * B + b) * n + i] = code;
   }
@@ -154,11 +152,13 @@ __global__ void __launch_bounds__(256) sfc_codes_kernel(
 
 }  // namespace
 
-// pts (B, N, 3) fp32, mask (N,) bytes 0 / 1 -> out (K, B, N) int32 codes;
-// gmin a (B, 3) int32 scratch. Two launches on `stream`; returns
-// cudaGetLastError() after them.
+// pts (B, N, 3) fp32, mask (N,) bytes 0 / 1 -> out (K, B, N) int32 codes at
+// `depth` bits an axis (1 to 10); gmin a (B, 3) int32 scratch. Two launches
+// on `stream`; returns cudaGetLastError() after them.
 extern "C" int sfc_codes_launch(const float* pts, const void* mask, int* gmin, int* out,
-                                int B, int n, float res, int K, int orders, void* stream) {
+                                int B, int n, float res, int K, int orders, int depth,
+                                void* stream) {
+  if (depth < 1 || depth > 10) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0 && K > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     sfc_min_kernel<<<B, 1024, 0, s>>>(pts, n, res, gmin);
@@ -166,7 +166,7 @@ extern "C" int sfc_codes_launch(const float* pts, const void* mask, int* gmin, i
     if (err != 0) return err;
     dim3 grid((n + 255) / 256, B);
     sfc_codes_kernel<<<grid, 256, 0, s>>>(pts, (const uint8_t*)mask, gmin, B, n, res, K,
-                                          orders, out);
+                                          orders, depth, out);
   }
   return (int)cudaGetLastError();
 }

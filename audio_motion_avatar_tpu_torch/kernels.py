@@ -66,7 +66,10 @@ KERNELS = {
          "winograd_smem": ([_I], _I)}),
     "sfc_codes": (
         "sfc_codes.cu", (),
-        {"sfc_codes_launch": ([_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P], _I)}),
+        {"sfc_codes_launch": ([_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P], _I)}),
+    "subm_conv": (
+        "subm_conv.cu", (),
+        {"subm_conv_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I)}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -101,6 +101,10 @@ class AvatarConfig:
     ptv3_patch_size: int = 512
     ptv3_grid_resolution: int = 100
     ptv3_output_dim: int = 256
+    # the refiner's form: 'serial' (the TPU redesign: curve-window CPE, Dense
+    # embed, window-4 pooling) or 'pointcept' (Pointcept's PT-v3m1 as the
+    # reference runs it: sparse-conv stem and CPEs, grid pooling; port only)
+    ptv3_form: str = "serial"
     # 'float32' | 'bfloat16': compute dtype of the transformer, refiner and
     # upsampler stacks (params stay fp32; geometry + splatting stay fp32)
     compute_dtype: str = "float32"
@@ -156,6 +160,11 @@ class AvatarConfig:
             ptv3_output_dim=256,
             max_per_tile=128,
         )
+
+
+# Fields of the port that the JAX package's AvatarConfig does not have
+# (their defaults select what the JAX package computes).
+PORT_ONLY_FIELDS = {"ptv3_form": "serial"}
 
 
 # The serving profile: forward-only knobs of the inference entry points

@@ -224,12 +224,17 @@ def attention_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float,
-                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_mask: Optional[torch.Tensor] = None,
+                    softmax_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The dense chain in the operands' dtype: softmax(q k^T * scale
-    [masked]) v. Used where the head width is not the kernel's."""
+    [masked]) v. Used where the head width is not the kernel's.
+    softmax_dtype: q k^T and the softmax in that dtype instead, the
+    probabilities rounded to v's dtype for P V."""
+    if softmax_dtype is not None:
+        q, k = q.to(softmax_dtype), k.to(softmax_dtype)
     logits = torch.einsum("bhsd,bhtd->bhst", q, k) * scale
     if kv_mask is not None:
         logits = logits.masked_fill(~kv_mask[:, None, None, :],
                                     torch.finfo(logits.dtype).min)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bhtd->bhsd", probs, v)

@@ -1,8 +1,11 @@
 """Space-filling-curve serialization of point clouds (int32 bit ops).
 
 z-order (Morton) codes by bit interleaving and Hilbert codes by the
-Skilling transform, 10 bits per axis (30-bit codes fit int32); "-trans"
-orders permute the axes (1, 2, 0) before encoding.
+Skilling transform, at most 10 bits per axis (30-bit codes fit int32);
+"-trans" orders permute the axes (1, 2, 0) before encoding. `depth` is the
+bits an axis (10 unless asked): Morton codes do not depend on it, Hilbert
+codes do (PTv3-m1 encodes at the bit length of the batch's largest grid
+coordinate).
 
 `sfc_codes` gives one PTv3 level's codes in every order asked for: kernel
 SFC (`csrc/sfc_codes.cu`, two launches) on CUDA tensors, its plain version
@@ -92,23 +95,25 @@ def grid_coords(points: torch.Tensor, grid_resolution: float,
 
 
 def sfc_codes_plain(points: torch.Tensor, mask: torch.Tensor, grid_resolution: float,
-                    orders: Sequence[str]) -> torch.Tensor:
+                    orders: Sequence[str], depth: int = 10) -> torch.Tensor:
     """Plain version of kernel SFC: points (B, N, 3), mask (N,) bool valid
-    -> (K, B, N) int32 10-bit-an-axis codes of the K `orders` (PAD_CODE
-    where masked), the grid's minimum taken over every row of a cloud,
-    masked ones included."""
-    grid = grid_coords(points, grid_resolution)
+    -> (K, B, N) int32 `depth`-bit-an-axis codes of the K `orders`
+    (PAD_CODE where masked), the grid's minimum taken over every row of a
+    cloud, masked ones included, the grid clamped to `depth` bits."""
+    grid = grid_coords(points, grid_resolution, depth)
     pad = torch.full((), PAD_CODE, dtype=torch.int32, device=points.device)
-    return torch.stack([torch.where(mask, encode(grid, o), pad) for o in orders])
+    return torch.stack([torch.where(mask, encode(grid, o, depth), pad) for o in orders])
 
 
 def sfc_codes(points: torch.Tensor, mask: torch.Tensor, grid_resolution: float,
-              orders: Sequence[str]) -> torch.Tensor:
+              orders: Sequence[str], depth: int = 10) -> torch.Tensor:
     """Kernel SFC on CUDA tensors, its plain version on CPU tensors: points
-    (B, N, 3) float32, mask (N,) bool -> (K, B, N) int32 codes, the same
-    bits either way."""
+    (B, N, 3) float32, mask (N,) bool -> (K, B, N) int32 codes at `depth`
+    bits an axis (1 to 10), the same bits either way."""
+    if not 1 <= depth <= 10:
+        raise ValueError(f"sfc_codes: depth must be 1 to 10 bits an axis, got {depth}")
     if points.device.type == "cpu":
-        return sfc_codes_plain(points, mask, grid_resolution, orders)
+        return sfc_codes_plain(points, mask, grid_resolution, orders, depth)
     _check_codes_args(points, mask, orders)
     B, N, _ = points.shape
     K = len(orders)
@@ -121,7 +126,7 @@ def sfc_codes(points: torch.Tensor, mask: torch.Tensor, grid_resolution: float,
     lib = kernels.library("sfc_codes")
     rc = lib.sfc_codes_launch(points.data_ptr(), mask.data_ptr(),
                               buf.data_ptr() + 4 * K * B * N, out.data_ptr(),
-                              B, N, float(grid_resolution), K, ids,
+                              B, N, float(grid_resolution), K, ids, int(depth),
                               kernels.stream_ptr(points.device))
     kernels.check(rc, "sfc_codes")
     sfc_codes.launches += 1

@@ -15,9 +15,10 @@ Conventions (the mappers are the JAX module's, line for line):
   * the upsampler's eval-mode BatchNorms folded into its affine norm
     (run with renderer.upsampler_norm='affine').
 
-The PTv3 U-Net's spconv stem, CPEs and pool / unpool projections have no
-counterpart in the redesigned refiner and stay unmapped; the report lists
-what was loaded and skipped.
+Under ptv3_form 'serial' (the TPU redesign) the PTv3 U-Net's spconv stem,
+CPEs and pool / unpool projections have no counterpart and stay unmapped;
+under 'pointcept' (PT-v3m1 as the reference runs it) the whole U-Net maps
+(`map_ptv3_pointcept`). The report lists what was loaded and skipped.
 
 The checkpoint is read with torch.load(weights_only=True): tensors and
 plain containers. A Lightning file whose hyper_parameters pickle other
@@ -196,6 +197,84 @@ def map_ptv3(sd: dict, prefix: str, cfg, loaded: list) -> dict:
                                  heads, loaded)
             if blk:
                 unet[f"dec{d}_b{b}"] = blk
+    return {"unet": unet} if unet else {}
+
+
+def _batch_norm(sd: dict, prefix: str, loaded: list):
+    """torch BatchNorm1d at prefix -> {'scale','bias','mean','var'} (flax
+    BatchNorm's params and batch_stats, in one dict)."""
+    w = sd.get(prefix + ".weight")
+    if w is None:
+        return None
+    loaded.append(prefix)
+    return {"scale": np.asarray(w), "bias": np.asarray(sd[prefix + ".bias"]),
+            "mean": np.asarray(sd[prefix + ".running_mean"]),
+            "var": np.asarray(sd[prefix + ".running_var"])}
+
+
+def _subm_conv(sd: dict, prefix: str, loaded: list):
+    """spconv 2.x SubMConv3d at prefix -> {'subm_kernel' (C_out, k, k, k,
+    C_in) as stored, 'bias'}."""
+    w = sd.get(prefix + ".weight")
+    if w is None:
+        return None
+    loaded.append(prefix)
+    out = {"subm_kernel": np.asarray(w)}
+    b = sd.get(prefix + ".bias")
+    if b is not None:
+        out["bias"] = np.asarray(b)
+    return out
+
+
+def map_ptv3_pointcept(sd: dict, prefix: str, cfg, loaded: list) -> dict:
+    """Reference PointTransformerV3 U-Net -> models/ptv3.PointceptUNet
+    ('unet'), the whole of it: the stem (embedding.stem.conv / .norm), every
+    Block's cpe.0 (SubMConv3d) / cpe.1 (Linear) / cpe.2 (LayerNorm) and its
+    attention + MLP (map_ptv3_block), every encoder stage's down.proj /
+    down.norm.0 and decoder stage's up.proj.0 / .1 and up.proj_skip.0 / .1.
+
+    The spconv weights are copied as stored, in spconv 2.x's (C_out, k, k,
+    k, C_in) layout, and the port reads the stencil's axes in the grid's
+    order (x, y, z) with offset index a - k // 2 on each, the cross-
+    correlation of F.conv3d: that offset order is assumed until a run on
+    the released weights checks it."""
+    unet: dict = {}
+
+    def put(name, value):
+        if value:
+            unet[name] = value
+
+    put("stem_conv", _subm_conv(sd, f"{prefix}.embedding.stem.conv", loaded))
+    put("stem_bn", _batch_norm(sd, f"{prefix}.embedding.stem.norm", loaded))
+
+    def block(bp, name, heads):
+        blk = map_ptv3_block(sd, bp, heads, loaded)
+        conv = _subm_conv(sd, f"{bp}.cpe.0", loaded)
+        if conv:
+            blk["cpe_conv"] = conv
+        lin = _linear(blk, f"{bp}.cpe.1", sd, loaded)
+        if lin:
+            blk["cpe_linear"] = lin
+        w = sd.get(f"{bp}.cpe.2.weight")
+        if w is not None:
+            blk["cpe_ln"] = {"scale": np.asarray(w), "bias": np.asarray(sd[f"{bp}.cpe.2.bias"])}
+            loaded.append(f"{bp}.cpe.2")
+        put(name, blk)
+
+    for s, (depth, heads) in enumerate(zip(cfg.ptv3_enc_depths, cfg.ptv3_enc_heads)):
+        if s > 0:
+            put(f"pool{s}_proj", _linear(unet, f"{prefix}.enc.enc{s}.down.proj", sd, loaded))
+            put(f"pool{s}_bn", _batch_norm(sd, f"{prefix}.enc.enc{s}.down.norm.0", loaded))
+        for b in range(depth):
+            block(f"{prefix}.enc.enc{s}.block{b}", f"enc{s}_b{b}", heads)
+    for d, (depth, heads) in enumerate(zip(cfg.ptv3_dec_depths, cfg.ptv3_dec_heads)):
+        up = f"{prefix}.dec.dec{d}.up"
+        put(f"dec{d}_proj_up", _linear(unet, f"{up}.proj.0", sd, loaded))
+        put(f"dec{d}_bn_up", _batch_norm(sd, f"{up}.proj.1", loaded))
+        put(f"dec{d}_proj_skip", _linear(unet, f"{up}.proj_skip.0", sd, loaded))
+        put(f"dec{d}_bn_skip", _batch_norm(sd, f"{up}.proj_skip.1", loaded))
+        for b in range(depth):
+            block(f"{prefix}.dec.dec{d}.block{b}", f"dec{d}_b{b}", heads)
     return {"unet": unet} if unet else {}
 
 
@@ -439,8 +518,8 @@ def map_reference_state_dict(sd: dict, cfg, stage: int = 1) -> Tuple[dict, dict]
             refine[f"layers_{i}"] = m
     if refine:
         rend["refine_mlp"] = refine
-    ptv3 = map_ptv3(sd, f"{P}.renderer.point_encoder.point_transformer",
-                    cfg, loaded)
+    mapper = map_ptv3_pointcept if cfg.ptv3_form == "pointcept" else map_ptv3
+    ptv3 = mapper(sd, f"{P}.renderer.point_encoder.point_transformer", cfg, loaded)
     if ptv3:
         rend["point_refiner"] = ptv3
     if rend:
@@ -466,7 +545,7 @@ def map_reference_state_dict(sd: dict, cfg, stage: int = 1) -> Tuple[dict, dict]
             "upsampler BatchNorms folded from running stats — run with "
             "model.renderer.upsampler_norm='affine' for exact inference "
             "parity")
-    if ptv3:
+    if ptv3 and cfg.ptv3_form != "pointcept":
         report.setdefault("notes", []).append(
             "PTv3 U-Net partially imported: block attention+MLP mapped 1:1; "
             "spconv stem/CPEs and pool/unpool projections need the "

@@ -14,7 +14,9 @@ attention kernels (C, H, D) / (H, D, C) -> Linear over H*D; biases (H, D)
 -> (H*D,); the serial CPE (3, 1, C) -> depthwise (C, 1, 3); time_kernel
 (3, C, T) -> the reference Conv3d weight (3C, 1, T, 1, 1); LayerNorm /
 GroupNorm / affine `scale` and Embed `embedding` -> `weight`; raw params
-(pos_embed, smpl_tokens, the tokenizer's embeddings) keep name and layout.
+(pos_embed, smpl_tokens, the tokenizer's embeddings) keep name and layout;
+a sparse conv's `subm_kernel` (C_out, k, k, k, C_in) -> `weight` as it is;
+a BatchNorm's `mean` / `var` -> `running_mean` / `running_var`.
 
 Every rule is a relayout, so a gradient tree (jax.grad of a loss of the
 params: a cotangent has the params' layout) maps the same way:
@@ -71,6 +73,10 @@ def _convert_leaf(path: tuple, a: np.ndarray) -> Tuple[str, np.ndarray]:
         return "weight", a
     elif leaf in RAW_PARAMS:
         return leaf, a
+    elif leaf == "subm_kernel" and a.ndim == 5:
+        return "weight", a
+    elif leaf in ("mean", "var") and a.ndim == 1:
+        return f"running_{leaf}", a
     elif leaf == "time_kernel" and a.ndim == 3:
         P, C, T = a.shape
         return "weight", a.reshape(P * C, 1, T, 1, 1)

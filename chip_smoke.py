@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--parent DIR]
 
 Phases (any failure exits non-zero):
-  1. build   — compiles the nine CUDA sources from audio_motion_avatar_tpu_torch/csrc
+  1. build   — compiles the ten CUDA sources from audio_motion_avatar_tpu_torch/csrc
                (one nvcc per source, in parallel) into build/kernels/, with
                ptxas's registers and spills (printed again beside A, K2,
                A-bwd and K9a / K9b);
@@ -92,6 +92,17 @@ Phases (any failure exits non-zero):
                launch counts (16 K9a, 52 A a request), then its frames against
                phase 4's direct-conv rollout on the same inputs and weights:
                mean|diff| <= 1e-2, PSNR >= 40 dB; then profiled as in 5 (5b);
+  4c. serve, PT-v3m1 — phase 4 with ptv3_form='pointcept' (the published
+               refiner): the same checks, and the launches the form implies
+               (46 SC a request: the stem and 22 CPEs a chunk; SFC 2 a chunk);
+  4d. SC at the serving shapes — one chunk's refiner inputs from 4c, level 0
+               built by the form (6 x 30,000 rows and their voxels): kernel SC
+               at the stem (768 -> 32, 5^3) and dec0's CPE (256 -> 256, 3^3)
+               against the plain version's float64 sums under
+               ops/sparse_conv.excess_error, a rule that must reject a map
+               with one present offset dropped; timed beside its bound and the
+               plain version; then SC under autograd at the stem (dx by SC
+               over the mirrored map, dW) under the same rule;
   6. small stage 1 — a tiny reconstruction (reference view + 3 novel views)
                on the card against the CPU: fp32 with the tiny heads (K1), the
                image tokens of the CPU's ViT fed to both (the ViT runs in bf16
@@ -109,6 +120,10 @@ Phases (any failure exits non-zero):
                (K9b: GroupNorm fused into every dense conv), 1 warm-up and 2
                requests; launches as the config implies, frames against phase
                7's within 1e-2 / 40 dB;
+  7c. reconstruct, PT-v3m1 — phase 7 with ptv3_form='pointcept', 1 warm-up
+               and 1 request: launches as the config implies (23 SC: the
+               stem and 22 CPEs of the one refiner call), finite and
+               non-blank frames;
   8. serve from a reference — the serving model with its stage-1 stack: the
                tokens of 2 streams' 2 reference frames (the stage-1 pass, render
                off), then one rollout request from them; frames checked as in 4.
@@ -275,8 +290,9 @@ Every full-width phase but the reconstruction (7, 7b), phase 17's stage-1
 model and the kernel checks builds the frozen Sapiens ViT one block deep
 (SHALLOW_VIT: its seeded init took ~15 s a build; the script's time limit). Each phase prints its seconds, and the
 script its whole run's. Then one
-{"kernels": [...]} line (ten kernels: splash is kernel A under the JAX
-package's splash name; each kernel's launches those of its paths,
+{"kernels": [...]} line (eleven kernels: splash is kernel A under the JAX
+package's splash name; each kernel's launches those of its paths, SC's
+phase 4c's,
 phases 15, 16, 17a, 17, 18a, 18 and (Q, Q-bwd) 19 added, the ranks'
 counted in their own processes), the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Takes about a quarter of an hour on one
@@ -760,6 +776,117 @@ def check_ptv3_codes(dev):
           f"bit-identical to the parent's per-order chain={exact}", flush=True)
     if not exact:
         raise AssertionError("PTv3 with kernel SFC differs from the parent's serialization")
+
+
+def check_subm_conv(dev, roll, tri, smpl, req):
+    """Kernel SC at the serving path's shapes: one chunk's refiner inputs
+    from a PT-v3m1 request (phase 4c's rollout, captured by a forward
+    pre-hook), level 0 built by the form's own `levels` (6 x 30,000 rows and
+    their voxels), then the stem (768 -> 32, 5^3, no bias: the model's
+    weights on the chunk's features) and dec0's first CPE (256 -> 256, 3^3,
+    the model's weights and bias on a seeded input): each against the plain
+    version's float64 sums on the same bf16 inputs under
+    ops/sparse_conv.excess_error, a rule that must reject SC with one
+    present offset dropped from the map; a second launch bit for bit; times
+    by CUDA events and as device time beside the bound (FLOPs 2 pairs C_in
+    C_out over the voxels' present pairs; bytes the voxels' rows in and out
+    and the weights once at 2 bytes, the map's int32s) and the plain
+    version. Then SC under autograd at the stem: dx (kernel SC over the
+    mirrored map) and dW against autograd through the plain version in
+    float64, each under excess_error, two launches. Returns the kernels
+    line's entry (the stem's times)."""
+    import torch
+    from audio_motion_avatar_tpu_torch.ops import sparse_conv as sc
+    from audio_motion_avatar_tpu_torch.serve import serve
+
+    refiner = roll.model.renderer.point_refiner
+    captured = []
+    hook = refiner.register_forward_pre_hook(lambda m, args: captured.append(args))
+    try:
+        list(serve(roll, tri, smpl, [req]))
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    unet = refiner.unet
+    pts, feats = captured[0]
+    B, N = pts.shape[:2]
+    with torch.no_grad():
+        level, sizes, _, perm0 = unet.levels(pts)
+        level.build_nbr((3, 5))
+        x0 = feats.reshape(B * N, -1)[(torch.arange(B, device=dev)[:, None] * N
+                                       + perm0).reshape(-1)].to(torch.bfloat16).contiguous()
+    M = level.nbr[3].shape[0]
+    print(f"[SC] a chunk's level 0: {level.rows} rows in {M} voxels ({1 - M / level.rows:.1%} "
+          f"of the rows share a voxel with an earlier one); level sizes a cloud "
+          f"{[sizes[lvl][0] for lvl in range(len(sizes))]} (voxels at level 0)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(21)
+    dec0 = unet.dec0_b0.cpe_conv
+    cases = (("stem", x0, level.nbr[5], unet.stem_conv.weight, None),
+             ("dec0 CPE", torch.randn(level.rows, dec0.weight.shape[-1], device=dev,
+                                      generator=g).to(torch.bfloat16), level.nbr[3],
+              dec0.weight, dec0.bias))
+    entry, worst = None, 0.0
+    for name, x, nbr, weight, bias in cases:
+        w = weight.detach().to(torch.bfloat16)
+        b = None if bias is None else bias.detach().float()
+        C_out, C_in = w.shape[0], w.shape[-1]
+        K = nbr.shape[1]
+        with torch.no_grad():
+            got, again = sc.subm_conv(x, nbr, w, b), sc.subm_conv(x, nbr, w, b)
+            ref = sc.subm_conv_plain(x.double(), nbr, w.double(),
+                                     None if b is None else b.double())
+            present = (nbr >= 0).sum(0)
+            drop = int(torch.where(torch.arange(K, device=dev) == K // 2, 0, present).argmax())
+            cut = nbr.clone()
+            cut[:, drop] = -1
+            wrong = sc.subm_conv(x, cut, w, b)
+        torch.cuda.synchronize()
+        excess, wrong_excess = sc.excess_error(got, ref), sc.excess_error(wrong, ref)
+        err = float((got.double() - ref).abs().max())
+        pairs = int(present.sum())
+        flops = 2 * pairs * C_in * C_out
+        nbytes = 2 * (M * C_in + M * C_out + K * C_in * C_out) + 4 * M * K
+        bound_ms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        with torch.no_grad():
+            ms = time_ms(lambda: sc.subm_conv(x, nbr, w, b), 20)
+            device_ms = graph_ms(lambda: sc.subm_conv(x, nbr, w, b), launches=10)
+            plain_ms = time_ms(lambda: sc.subm_conv_plain(x, nbr, w, b), 3)
+        print(f"[SC] {name} ({M} voxels, {C_in} -> {C_out}, {K} offsets, {pairs} present "
+              f"pairs, {pairs / M:.2f} a voxel): max|diff|={err:.3e} against the float64 "
+              f"sums; excess {excess:.3f} (tol 1), with offset {drop} dropped "
+              f"{wrong_excess:.3f}; second launch bit for bit={torch.equal(got, again)}; "
+              f"{ms:.4f} ms (device time {device_ms:.4f} ms), {bound_ms / device_ms:.1%} of its "
+              f"bound {bound_ms:.4f} ms ({by}); plain version {plain_ms:.3f} ms", flush=True)
+        if not (excess <= 1.0 and torch.equal(got, again) and torch.isfinite(got).all()):
+            raise AssertionError(f"kernel SC disagrees with its plain version at the {name}: "
+                                 f"excess {excess}")
+        if not wrong_excess > 1.0:
+            raise AssertionError(f"the SC rule does not reject a dropped offset at the {name}")
+        worst = max(worst, err)
+        if entry is None:
+            entry = {"name": "subm_conv", "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": None,
+                     "shape": f"({M} voxels, {C_in} -> {C_out}, {K} offsets) bf16"}
+        del got, again, ref, wrong, cut
+        torch.cuda.empty_cache()
+
+    x, nbr, weight = cases[0][1], cases[0][2], cases[0][3]
+    w = weight.detach().to(torch.bfloat16).requires_grad_()
+    xg = x.clone().requires_grad_()
+    dy = torch.randn(M, w.shape[0], device=dev, generator=g).to(torch.bfloat16)
+    before = sc.subm_conv.launches
+    got = torch.autograd.grad(sc.subm_conv(xg, nbr, w), (xg, w), dy)
+    launched = sc.subm_conv.launches - before
+    refs = [t.detach().double().requires_grad_() for t in (xg, w)]
+    want = torch.autograd.grad(sc.subm_conv_plain(refs[0], nbr, refs[1]), refs, dy.double())
+    torch.cuda.synchronize()
+    ex = [sc.excess_error(a, r) for a, r in zip(got, want)]
+    print(f"[SC] stem under autograd: dx excess {ex[0]:.3f}, dW excess {ex[1]:.3f} (tol 1), "
+          f"SC launches {launched} (expected 2)", flush=True)
+    if not (max(ex) <= 1.0 and launched == 2):
+        raise AssertionError(f"SC under autograd: excess {ex}, launches {launched}")
+    return dict(entry, err=worst)
 
 
 def bits(x):
@@ -1903,6 +2030,7 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
     from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
     from audio_motion_avatar_tpu_torch.ops import triplane as tp
     from audio_motion_avatar_tpu_torch.ops import serialization as ser
+    from audio_motion_avatar_tpu_torch.ops import sparse_conv as sc
     from audio_motion_avatar_tpu_torch.ops import winograd as W
     from audio_motion_avatar_tpu_torch.serve import build_rollout, serve, synthetic_inputs
     from audio_motion_avatar_tpu_torch.weights import perturb_heads
@@ -1928,7 +2056,7 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
     print(f"[{tag}] warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms",
           flush=True)
     counters = (at.attention, tp.quad_rows, ss.composite_segments, W.winograd_conv3x3,
-                ser.sfc_codes)
+                ser.sfc_codes, sc.subm_conv)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1948,6 +2076,7 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
     B, T_out = rendered.shape[:2]
     n_chunks = (B * T_out) // mcfg.frames_per_chunk
     dec0_d = mcfg.ptv3_dec_channels[0] // mcfg.ptv3_dec_heads[0]
+    pointcept = mcfg.ptv3_form == "pointcept" and not mcfg.no_point_refiner
     # K9a: every ResBlock conv of a chunk's upsampler pass (the dense
     # levels' and the sparse final level's; the affine norm fuses nothing)
     per_request = {
@@ -1955,8 +2084,13 @@ def run_rollout(dev, requests=3, tag="rollout", **knobs):
         + (mcfg.ptv3_dec_depths[0] * n_chunks if dec0_d == 64 else 0),
         "quad_rows": n_chunks, "composite_segments": n_chunks,
         "winograd_conv3x3": upsampler_launches(mcfg)[0] * n_chunks,
-        # kernel SFC: one launch a PTv3 level, a PTv3 call a chunk
-        "sfc_codes": 0 if mcfg.no_point_refiner else len(mcfg.ptv3_enc_channels) * n_chunks}
+        # kernel SFC: one launch a PTv3 level, a PTv3 call a chunk; PT-v3m1:
+        # two a call (level 0's z codes, then every order at the call's depth)
+        "sfc_codes": 0 if mcfg.no_point_refiner else (
+            2 if pointcept else len(mcfg.ptv3_enc_channels)) * n_chunks,
+        # kernel SC (PT-v3m1 only): the stem and every block's CPE, a call a chunk
+        "subm_conv": (1 + sum(mcfg.ptv3_enc_depths) + sum(mcfg.ptv3_dec_depths)) * n_chunks
+        if pointcept else 0}
     expected = {k: v * requests for k, v in per_request.items()}
     print(f"[{tag}] launches {launches} expected {expected}", flush=True)
     if launches != expected:
@@ -2164,7 +2298,8 @@ def reconstruction_launches(cfg):
     reference view, then all novel views); kernel A in the ViT's layers, the
     predictor's and the fusion's layers (self + cross each) and the PTv3
     dec0 blocks, where their heads are 64 wide; K9a / K9b in the one
-    upsampler pass (the reference frame)."""
+    upsampler pass (the reference frame); SC (PT-v3m1 only) at the stem and
+    every block's CPE of the one refiner call."""
     from audio_motion_avatar_tpu_torch.ops.attention import KERNEL_HEAD_DIM
 
     stacks = ((cfg.image_feature_dim // cfg.vit_heads, cfg.vit_depth),
@@ -2172,9 +2307,11 @@ def reconstruction_launches(cfg):
               (cfg.cross_transformer_head_dim, 2 * cfg.cross_transformer_layers),
               (cfg.ptv3_dec_channels[0] // cfg.ptv3_dec_heads[0], cfg.ptv3_dec_depths[0]))
     k9a, k9b = upsampler_launches(cfg) if cfg.upsample_triplane else (0, 0)
+    sc = 1 + sum(cfg.ptv3_enc_depths) + sum(cfg.ptv3_dec_depths)
     return {"composite_tiles": 2,
             "attention": sum(n for d, n in stacks if d == KERNEL_HEAD_DIM),
-            "winograd_conv3x3": k9a, "winograd_conv3x3_gn_relu": k9b}
+            "winograd_conv3x3": k9a, "winograd_conv3x3_gn_relu": k9b,
+            "subm_conv": sc if cfg.ptv3_form == "pointcept" else 0}
 
 
 def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
@@ -2188,6 +2325,7 @@ def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
     from audio_motion_avatar_tpu_torch.data.synthetic import make_batch, to_device
     from audio_motion_avatar_tpu_torch.models.config import AvatarConfig
     from audio_motion_avatar_tpu_torch.ops import attention as at
+    from audio_motion_avatar_tpu_torch.ops import sparse_conv as sc
     from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
     from audio_motion_avatar_tpu_torch.ops import winograd as Wg
     from audio_motion_avatar_tpu_torch.ops.splat_tiles import render_multi_view
@@ -2212,7 +2350,7 @@ def run_reconstruction(dev, requests=3, tag="reconstruct", **knobs):
           flush=True)
 
     counters = (st.composite_tiles, at.attention, Wg.winograd_conv3x3,
-                Wg.winograd_conv3x3_gn_relu)
+                Wg.winograd_conv3x3_gn_relu, sc.subm_conv)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5413,6 +5551,10 @@ def main():
     phase("5b profile, Winograd + splash", profile_rollout, *wstate,
           tag="profile, Winograd + splash")
     del wstate
+    pcept, pstate, _ = phase("4c serve, PT-v3m1", run_rollout, dev, tag="serve, PT-v3m1",
+                             ptv3_form="pointcept")
+    checks.append(phase("4d SC at the serving shapes", check_subm_conv, dev, *pstate))
+    del pstate
     phase("6 small stage 1", check_small_stage1, dev)
     rec, rec_frames, ms7 = phase("7 reconstruct", run_reconstruction, dev)
     rec_gn, gn_frames, _ = phase("7b reconstruct, winograd_gn", run_reconstruction, dev,
@@ -5420,6 +5562,8 @@ def main():
                               upsampler_conv="winograd_gn")
     for got, want, view in zip(gn_frames, rec_frames, ("reference", "novel")):
         frames_close(got, want, f"reconstruct, winograd_gn {view}")
+    phase("7c reconstruct, PT-v3m1", run_reconstruction, dev, requests=1,
+          tag="reconstruct, PT-v3m1", ptv3_form="pointcept")
     phase("8 serve from a reference", serve_from_reference, dev)
     bounds9 = phase("9 small train", check_small_train, dev)
     (train1, ms1, peak1), (train2, ms2, _) = (phase("10 train stage 1", run_train, dev, 1),
@@ -5467,7 +5611,8 @@ def main():
                 "attention_bwd": train1["attention_bwd"] + train2["attention_bwd"]
                 + idol16["attention_bwd"],
                 "winograd": wino["winograd_conv3x3"], "winograd_gn": rec_gn[k9b] + train_gn[k9b],
-                "splash": wino["attention"], "sfc_codes": roll["sfc_codes"]}
+                "splash": wino["attention"], "sfc_codes": roll["sfc_codes"],
+                "subm_conv": pcept["subm_conv"]}
     for name, fn in (("splat_segments", "composite_segments"), ("quad_rows", "quad_rows"),
                      ("attention", "attention"), ("splat_tiles", "composite_tiles"),
                      ("splat_tiles_bwd", "composite_tiles_bwd"),
@@ -5488,7 +5633,9 @@ def main():
                "winograd_gn": ("winograd.cu", pallas + "ops/winograd.py:275"),
                "splash": ("attention.cu", pallas + "models/transformer.py:314"),
                "sfc_codes": ("sfc_codes.cu", "none: XLA fuses " + pallas
-                             + "ops/serialization.py")}
+                             + "ops/serialization.py"),
+               "subm_conv": ("subm_conv.cu", "none: " + pallas + "models/ptv3.py:18-33 "
+                             "runs a curve-window conv and a Dense embed in its place")}
     # splash is kernel A under the JAX package's splash name: A's numbers
     checks.append(dict(next(c for c in checks if c["name"] == "attention"), name="splash"))
     line = []

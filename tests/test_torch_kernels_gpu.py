@@ -18,7 +18,11 @@ per-slot sums over a tile's 256 pixels are added in another order); K9a and
 K9b (Winograd) against their plain versions on the same bf16 inputs under
 ops/winograd.excess_error (every |diff| <= 2^-7 |ref| + 2^-8 RMS(ref), the
 mean within 1e-2 of the Winograd-vs-direct distance). SFC (the curve
-codes) bit-exact: integers after one fp32 multiply.
+codes) bit-exact: integers after one fp32 multiply. SC (the sparse conv)
+against its plain version's float64 sums on the same bf16 inputs under
+ops/sparse_conv.excess_error (every |diff| <= 2^-7 |ref| + 2^-12 RMS(ref):
+one bf16 spacing, of which the output's rounding costs at most half, and
+fp32 sums in another order).
 """
 
 import dataclasses
@@ -29,6 +33,7 @@ import torch
 
 from audio_motion_avatar_tpu_torch.ops import attention as at
 from audio_motion_avatar_tpu_torch.ops import serialization as ser
+from audio_motion_avatar_tpu_torch.ops import sparse_conv as sc
 from audio_motion_avatar_tpu_torch.ops import splat_segmented as ss
 from audio_motion_avatar_tpu_torch.ops import splat_tiles as st
 from audio_motion_avatar_tpu_torch.ops import triplane as tp
@@ -710,6 +715,130 @@ def test_sfc_codes_kernel_bit_exact(cuda, B, N, orders):
     assert torch.equal(got, want) and torch.equal(again, want)
     assert torch.equal(cpu, want.cpu())
     assert bool((got[:, :, ~mask] == ser.PAD_CODE).all())
+    # the default call is depth 10, the bits of a depth-10 call
+    assert torch.equal(got, ser.sfc_codes(pts, mask, 100.0, orders, 10))
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8, 9])
+def test_sfc_codes_kernel_at_depth(cuda, depth):
+    """Kernel SFC at a depth below 10 (PT-v3m1's adaptive depth) against its
+    plain version on the card and on the CPU, bit for bit."""
+    pts, mask = _sfc_clouds(cuda, 4, 4096, seed=depth)
+    got = ser.sfc_codes(pts, mask, 100.0, ser.ORDERS, depth)
+    want = ser.sfc_codes_plain(pts, mask, 100.0, ser.ORDERS, depth)
+    cpu = ser.sfc_codes_plain(pts.cpu(), mask.cpu(), 100.0, ser.ORDERS, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(cpu, want.cpu())
+
+
+def _sc_level(cuda, B, N, seed):
+    """One level of B body-like clouds (thick sphere shells of N points, a
+    0.8 m across at 1 cm voxels): its voxels' rows (one a voxel), keys and
+    the neighbour maps."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    d = torch.randn(B, N, 3, generator=g, device=cuda)
+    pts = d / d.norm(dim=-1, keepdim=True) * (0.4 + 0.02 * torch.rand(B, N, 1, generator=g,
+                                                                      device=cuda))
+    grid = ser.grid_coords(pts, 100.0).reshape(-1, 3)
+    cloud = torch.arange(B, device=cuda).repeat_interleave(N)
+    keys = torch.unique(sc.voxel_keys(cloud, grid))
+    rows = torch.arange(keys.numel(), device=cuda)
+    return keys, rows
+
+
+@pytest.mark.parametrize("C_in,C_out,k,bias", [(768, 32, 5, False), (256, 256, 3, True),
+                                               (32, 32, 3, True), (512, 512, 3, True),
+                                               (64, 128, 3, False)])
+def test_subm_conv_kernel_matches_plain(cuda, C_in, C_out, k, bias):
+    """Kernel SC against its plain version's float64 sums on the same bf16
+    inputs, under sc.excess_error (<= 1: one bf16 spacing of the value plus
+    2^-12 of the RMS): the stem's (768 -> 32, 5^3, no bias) and dec0's
+    CPE (256 -> 256, 3^3) at serving shapes (6 clouds of 30,000 points,
+    one row a voxel), the other CPE widths at smaller levels; a second
+    launch bit for bit; the launch counter one a call."""
+    B, N = (6, 30000) if C_in in (768, 256) else (3, 2000)
+    keys, rows = _sc_level(cuda, B, N, seed=C_in + k)
+    nbr = sc.neighbour_map(keys, rows, k)
+    g = torch.Generator(device=cuda).manual_seed(k)
+    M = rows.numel()
+    x = torch.randn(M, C_in, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(C_out, k, k, k, C_in, generator=g, device=cuda)
+         / (k ** 3 * C_in) ** 0.5).to(torch.bfloat16)
+    b = torch.randn(C_out, generator=g, device=cuda) if bias else None
+    before = sc.subm_conv.launches
+    with torch.no_grad():
+        got = sc.subm_conv(x, nbr, w, b)
+        again = sc.subm_conv(x, nbr, w, b)
+    assert sc.subm_conv.launches == before + 2
+    want = sc.subm_conv_plain(x.double(), nbr, w.double(), None if b is None else b.double())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, C_out)
+    assert torch.equal(got, again)
+    assert sc.excess_error(got, want) <= 1.0
+    assert 0 < int((nbr >= 0).sum()) < nbr.numel()
+
+
+def test_subm_conv_ragged_rows_and_absent_neighbours(cuda):
+    """Rows past a multiple of 64, rows with no neighbour but themselves,
+    and a map that gathers from a larger x (a level's voxels' first rows)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(500, 64, generator=g, device=cuda).to(torch.bfloat16)
+    nbr = torch.randint(-1, 500, (131, 27), generator=g, device=cuda).to(torch.int32)
+    nbr[:40] = -1
+    nbr[:40, 13] = torch.arange(40, device=cuda, dtype=torch.int32)
+    w = torch.randn(64, 3, 3, 3, 64, generator=g, device=cuda).to(torch.bfloat16) / 40
+    with torch.no_grad():
+        got = sc.subm_conv(x, nbr, w, None)
+    want = sc.subm_conv_plain(x.double(), nbr, w.double())
+    torch.cuda.synchronize()
+    assert sc.excess_error(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("C_in,C_out,k,bias", [(768, 32, 5, False), (256, 256, 3, True)])
+def test_subm_conv_backward_kernel(cuda, C_in, C_out, k, bias):
+    """SC under autograd on the card (the stem's and a CPE's widths, 2
+    clouds of 5,000 points, two rows a voxel of which the second is read by
+    no map): forward and dx by kernel SC (two launches), dW and db against
+    autograd through the plain version in float64 on the same bf16 inputs;
+    dx and dW under sc.excess_error, db (fp32 sums over the voxels) within
+    1e-5 relative; rows that represent no voxel get 0."""
+    keys, rows = _sc_level(cuda, 2, 5000, seed=k)
+    nbr = sc.neighbour_map(keys, 2 * rows, k)
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(2 * rows.numel(), C_in, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(C_out, k, k, k, C_in, generator=g, device=cuda)
+         / (k ** 3 * C_in) ** 0.5).to(torch.bfloat16)
+    b = torch.randn(C_out, generator=g, device=cuda) if bias else None
+    dy = torch.randn(rows.numel(), C_out, generator=g, device=cuda).to(torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (x, w, b) if t is not None]
+    before = sc.subm_conv.launches
+    got = torch.autograd.grad(sc.subm_conv(x, nbr, w, b), leaves, dy)
+    assert sc.subm_conv.launches == before + 2
+    ref_leaves = [t.detach().double().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(sc.subm_conv_plain(ref_leaves[0], nbr, ref_leaves[1],
+                                                  ref_leaves[2] if bias else None),
+                               ref_leaves, dy.double())
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and bool((got[0][1::2] == 0).all())
+    assert sc.excess_error(got[0], want[0]) <= 1.0
+    assert sc.excess_error(got[1], want[1]) <= 1.0
+    if bias:
+        torch.testing.assert_close(got[2].double(), want[2], rtol=1e-5, atol=0)
+
+
+def test_subm_conv_wrapper_validates(cuda):
+    x = torch.zeros(10, 32, device=cuda, dtype=torch.bfloat16)
+    nbr = torch.zeros(10, 27, device=cuda, dtype=torch.int32)
+    w = torch.zeros(32, 3, 3, 3, 32, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bf16"):
+            sc.subm_conv(x.float(), nbr, w)
+        with pytest.raises(ValueError, match="int32"):
+            sc.subm_conv(x, nbr.long(), w)
+        with pytest.raises(ValueError, match="multiples of 32"):
+            sc.subm_conv(x[:, :16].contiguous(), nbr, w[..., :16])
+        with pytest.raises(ValueError, match="does not fit"):
+            sc.subm_conv(x, nbr[:, :8].contiguous(), w)
 
 
 def test_sfc_codes_wrapper_validates(cuda):

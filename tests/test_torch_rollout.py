@@ -167,6 +167,10 @@ def test_serving_profile_matches_jax():
     assert port.SERVING_PROFILE_MODEL == jax_build.SERVING_PROFILE_MODEL
     jax_defaults = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     for f in dataclasses.fields(AvatarConfig):
+        if f.name in port.PORT_ONLY_FIELDS:     # the JAX package's form by default
+            assert f.name not in jax_defaults and f.default == port.PORT_ONLY_FIELDS[f.name]
+            assert getattr(AvatarConfig.tiny(), f.name) == f.default, f.name
+            continue
         assert jax_defaults[f.name] == f.default, f.name
         assert getattr(AvatarConfig.tiny(), f.name) == getattr(JaxConfig.tiny(), f.name), f.name
 
